@@ -8,11 +8,13 @@ Needs one CUDA card; exits non-zero without one.  Phases, each printed:
 1. the card (nvidia-smi name and power limit) and the kernel build;
 2. K1, the Viterbi kernel, against its plain version at the main path's
    shapes (B=4096 channels x 3 frame slots, the four trellis lengths):
-   bits and metric must be equal; median times of both;
+   bits and metric must be equal; median times of both, the bound and
+   the share of it, clocks and power;
 3. K2, the receiver-scan kernel, against its plain version over a
    13-block staggered session mix at B=4096 after the front end: slot
-   values, flags and every state field must be equal; median times per
-   block;
+   values, flags and every state field must be equal; times per block,
+   and the kernel's median over 30 launches on one fixed mid-session
+   block and state, with its bound, share, clocks and power;
 4. the main path, ``rx_stream`` at B=4096 and T=1920 over the same mix,
    on the kernels and on the plain versions: every output field and the
    final state must be equal, and both kernels must have been launched
@@ -21,7 +23,12 @@ Needs one CUDA card; exits non-zero without one.  Phases, each printed:
    committed fixture sessions (m17_sdr_tpu_torch/data/rx_fixture.npz),
    tiled to B=4096: every recorded field must equal the record;
 6. a ``kernels`` summary, then one JSON line with each kernel's launches,
-   error and times, then the last line ``{"ok": true, "device": ...}``.
+   error, times and bound, then the last line ``{"ok": true, "device": ...}``.
+
+A kernel's bound is the least time the card could take for its work: the
+larger of its bytes (each input read once, each output written once) over
+HBM_BYTES_PER_S and its f32 operations over F32_OPS_PER_S, the H100 SXM's
+published peaks.
 
 Any mismatch prints where it was found and exits 1 before the last line.
 """
@@ -43,6 +50,11 @@ NBLK = 13                # blocks in one fixture session
 F = 3                    # frame slots per block
 TRELLIS_STEPS = {"lsf": 244, "stream": 148, "packet": 210, "bert": 205}
 FLOAT_TOL = 1e-6         # kernel vs plain floats; exact is expected
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+K1_OPS_PER_STEP = 68     # 16 states x (2 adds, compare, select) + 4 branch adds
+K2_OPS_PER_CLK = 122     # 2 filters x (31 products + 30 sums) at a clk step
+K2_BLOCK = NBLK // 2     # the mid-session block K2 is timed on
 
 
 def fail(msg: str) -> None:
@@ -50,20 +62,40 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+HOLD_CYCLES = 10_000_000  # a few ms of device spin ahead of each timed call
+
+
+def timed(fn):
+    """(device ms, result) of one fn() by CUDA events.  The stream is held
+    busy first, so the host has enqueued all of fn's work before the start
+    event fires and its launch overhead is not timed (for a host-bound fn,
+    such as a plain version, it still shows)."""
+    torch.cuda._sleep(HOLD_CYCLES)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), res
+
+
 def cuda_ms(fn, reps: int) -> float:
-    """Median device time of fn() in ms, by CUDA events, after a warm-up."""
+    """Median device time of fn() in ms over reps calls, after a warm-up."""
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(timed(fn)[0] for _ in range(reps))
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least time in ms, "bytes" or "operations") for the given work."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
 
 
 def first_diff(name: str, a: torch.Tensor, b: torch.Tensor, block_axis: bool) -> str:
@@ -116,15 +148,12 @@ def main() -> int:
     from m17_sdr_tpu_torch.dsp.discriminator import RxFrontEndState, rx_front_end
     from m17_sdr_tpu_torch.fec.viterbi import viterbi_decode_cuda, viterbi_decode_ref
     from m17_sdr_tpu_torch.frame.receiver import (
-        ReceiverState, receiver_scan_cuda, receiver_scan_ref)
+        _KERNEL_FIELDS, ReceiverState, receiver_scan_cuda, receiver_scan_ref)
     from m17_sdr_tpu_torch.pipeline.rx import RxSessionState, rx_stream
-    from m17_sdr_tpu_torch.spec.constants import TIMING_FILTER_TAPS
 
     # ---- phase 1: the card and the build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    card = smi("name,power.limit").splitlines()[0]
+    print(card, flush=True)
     t0 = time.perf_counter()
     _build.build_all()
     print(f"phase 1 build: {time.perf_counter() - t0:.1f} s for "
@@ -134,7 +163,8 @@ def main() -> int:
     report = {}
 
     # ---- phase 2: K1 parity and time
-    k1_ms = k1_plain_ms = k1_err = 0.0
+    k1_ms = k1_plain_ms = k1_err = k1_bound = 0.0
+    k1_ops = k1_bytes = 0
     for name, steps in TRELLIS_STEPS.items():
         soft = rng.normal(size=(B * F, 2 * steps)).astype(np.float32)
         soft[:, 11::12] = 0.0                       # erasures, as depunctured
@@ -148,12 +178,21 @@ def main() -> int:
         err = (met_k - met_r).abs().max().item()
         ms = cuda_ms(lambda: viterbi_decode_cuda(x), 20)
         plain = cuda_ms(lambda: viterbi_decode_ref(x), 3)
+        nbytes = x.nbytes + bits_k.nbytes + met_k.nbytes
+        ops = K1_OPS_PER_STEP * x.shape[0] * steps
+        b_ms, _ = bound(nbytes, ops)
         k1_ms, k1_plain_ms, k1_err = k1_ms + ms, k1_plain_ms + plain, max(k1_err, err)
+        k1_bound, k1_bytes, k1_ops = k1_bound + b_ms, k1_bytes + nbytes, k1_ops + ops
         print(f"phase 2 K1 {name}: {B * F} trellises x {steps} steps: bits and metric "
-              f"equal; kernel {ms:.3f} ms, plain {plain:.1f} ms", flush=True)
-    report["viterbi"] = dict(ms=k1_ms, plain_ms=k1_plain_ms, max_abs_err=k1_err)
-    print(f"phase 2 K1 one block's four decodes: kernel {k1_ms:.3f} ms, "
-          f"plain {k1_plain_ms:.1f} ms", flush=True)
+              f"equal; kernel {ms:.4f} ms, plain {plain:.1f} ms; bound {b_ms * 1e3:.2f} us "
+              f"({nbytes / 1e6:.2f} MB), share {b_ms / ms:.3f}", flush=True)
+    _, k1_by = bound(k1_bytes, k1_ops)
+    report["viterbi"] = dict(ms=k1_ms, plain_ms=k1_plain_ms, max_abs_err=k1_err,
+                             bound_ms=k1_bound, bound_by=k1_by)
+    print(f"phase 2 K1 one block's four decodes: kernel {k1_ms:.4f} ms, "
+          f"plain {k1_plain_ms:.1f} ms; bound {k1_bound * 1e3:.2f} us ({k1_by}), "
+          f"share {k1_bound / k1_ms:.3f}; {card}; clocks.sm, power.draw, power.limit: "
+          f"{smi('clocks.sm,power.draw,power.limit')}", flush=True)
 
     # ---- phase 3: K2 parity and time over the staggered mix
     with np.load(_fixture_path()) as z:
@@ -161,23 +200,13 @@ def main() -> int:
     blocks = staggered_blocks(fx["iq"], dev)
     fe = RxFrontEndState.init(B, dev)
     st_k = st_r = ReceiverState.init(B, dev)
-    window = st_k.window
     k2_ms, k2_plain_ms, k2_err = [], [], 0.0
     for i in range(NBLK):
         soft2x, _, fe = rx_front_end(blocks[:, i], fe, in_frame=st_k.flock, afc_enabled=True)
-        ext = torch.cat([window[:, 1:], soft2x], dim=-1)
-        times = {}
-        for leg, scan, st in (("kernel", receiver_scan_cuda, st_k),
-                              ("plain", receiver_scan_ref, st_r)):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            res = scan(ext, st)
-            end.record()
-            end.synchronize()
-            times[leg] = (start.elapsed_time(end), res)
-        (ms, (slot_k, flags_k, st_k)), (plain, (slot_r, flags_r, st_r)) = \
-            times["kernel"], times["plain"]
+        if i == K2_BLOCK:
+            fixed = (soft2x, st_k)
+        ms, (slot_k, flags_k, st_k) = timed(lambda: receiver_scan_cuda(soft2x, st_k))
+        plain, (slot_r, flags_r, st_r) = timed(lambda: receiver_scan_ref(soft2x, st_r))
         for name, a, b in (("slot_val", slot_k, slot_r), ("flags", flags_k, flags_r),
                            *((f"state.{f}", getattr(st_k, f), getattr(st_r, f))
                              for f in ReceiverState._fields)):
@@ -186,14 +215,26 @@ def main() -> int:
         k2_err = max(k2_err, (slot_k - slot_r).abs().max().item())
         k2_ms.append(ms)
         k2_plain_ms.append(plain)
-        window = ext[:, -TIMING_FILTER_TAPS:]
     locked = int(st_k.flock.sum())
     # medians: block 0's launch also loads the kernel's module onto the card
     k2_med, k2_plain_med = statistics.median(k2_ms), statistics.median(k2_plain_ms)
-    report["receiver_scan"] = dict(ms=k2_med, plain_ms=k2_plain_med, max_abs_err=k2_err)
     print(f"phase 3 K2: {NBLK} blocks x {B} channels: slots, flags and state equal "
-          f"({locked} channels locked at the end); median kernel {k2_med:.3f} ms/block "
-          f"(block 0: {k2_ms[0]:.3f}), plain {k2_plain_med:.1f} ms/block", flush=True)
+          f"({locked} channels locked at the end); one launch a block: median kernel "
+          f"{k2_med:.4f} ms/block (block 0: {k2_ms[0]:.3f}), plain {k2_plain_med:.1f} "
+          f"ms/block", flush=True)
+    samples, st = fixed
+    slot, flags, st_out = receiver_scan_cuda(samples, st)
+    state_fields = ("window", *_KERNEL_FIELDS)
+    nbytes = (samples.nbytes + slot.nbytes + flags.nbytes
+              + sum(getattr(st, f).nbytes + getattr(st_out, f).nbytes for f in state_fields))
+    k2_bound, k2_by = bound(nbytes, K2_OPS_PER_CLK * samples.numel() / 2)
+    k2_fixed = cuda_ms(lambda: receiver_scan_cuda(samples, st), 30)
+    report["receiver_scan"] = dict(ms=k2_fixed, plain_ms=k2_plain_med, max_abs_err=k2_err,
+                                   bound_ms=k2_bound, bound_by=k2_by)
+    print(f"phase 3 K2 block {K2_BLOCK}, median of 30 launches: kernel {k2_fixed:.4f} ms; "
+          f"bound {k2_bound * 1e3:.2f} us ({k2_by}, {nbytes / 1e6:.2f} MB), share "
+          f"{k2_bound / k2_fixed:.3f}; {card}; clocks.sm, power.draw, power.limit: "
+          f"{smi('clocks.sm,power.draw,power.limit')}", flush=True)
 
     # ---- phase 4: the main path, kernels vs plain
     legs = {}
@@ -258,7 +299,9 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[k.symbol],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None,
+                        "bound_us": r["bound_ms"] * 1e3, "share": r["bound_ms"] / r["ms"]})
     print("kernels " + "; ".join(
         f"{k['name']}: {k['launches']} launches on the main path, parity ok"
         for k in kernels), flush=True)

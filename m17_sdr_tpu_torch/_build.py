@@ -100,17 +100,18 @@ class CudaKernel:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
-# (soft [N, 2T] f32, bits [N, T] u8, metric [N] f32, dec [T, N] u16 scratch,
-#  n, t, stream)
-VITERBI = CudaKernel("viterbi.cu", "m17_viterbi_decode",
-                     [_P, _P, _P, _P, _I, _I, _P])
+# (soft [N, 2T] f32, bits [N, T] u8, metric [N] f32, n, t, stream)
+VITERBI = CudaKernel("viterbi.cu", "m17_viterbi_decode", [_P, _P, _P, _I, _I, _P])
 
-# (ext [S2+30, B] f32, taps [2, 40, 31] f32, pats [6, 8] f32,
-#  14 state pointers in, 14 state pointers out, slot [S2, B] f32,
-#  flags [S2, B] i32, b, s2, stream) -- see csrc/receiver_scan.cu
+# (samples [B, S2] f32 and window [B, 31] f32, each with its two element strides,
+#  taps [2, 40, 31] f32, pats [6, 8] f32 in host memory, 14 state pointers in, 14 state
+#  pointers out, window out [B, 31] f32, slot [B, S2] f32, flags [B, S2] i32,
+#  b, s2, stream) -- see csrc/receiver_scan.cu
 RECEIVER_SCAN = CudaKernel("receiver_scan.cu", "m17_receiver_scan",
-                           [_P] * 3 + [_P] * 14 + [_P] * 14 + [_P, _P, _I, _I, _P])
+                           [_P, _L, _L, _P, _L, _L, _P, _P] + [_P] * 14 + [_P] * 14
+                           + [_P, _P, _P, _I, _I, _P])
 
 KERNELS = (VITERBI, RECEIVER_SCAN)
 
@@ -138,7 +139,8 @@ def use_kernel_for(x: torch.Tensor, use_kernel: bool | None) -> bool:
     return bool(use_kernel)
 
 
-def check_cuda_input(name: str, x: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
+def check_cuda_input(name: str, x: torch.Tensor, dtype: torch.dtype, ndim: int,
+                     contiguous: bool = True) -> None:
     """What every kernel wrapper requires of an input tensor."""
     if not x.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got one on {x.device}")
@@ -146,5 +148,5 @@ def check_cuda_input(name: str, x: torch.Tensor, dtype: torch.dtype, ndim: int) 
         raise ValueError(f"{name}: expected {dtype}, got {x.dtype}")
     if x.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(x.shape)}")
-    if not x.is_contiguous():
+    if contiguous and not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,10 +1,17 @@
 """Counterpart of the repository's ``__graft_entry__.entry``: one receive
 block through the port's main path.
 
-    python -m m17_sdr_tpu_torch.entry      # on CUDA when available
+    python -m m17_sdr_tpu_torch.entry          # on the CUDA card
+    python -m m17_sdr_tpu_torch.entry --cpu    # on the CPU, plain versions
+
+Without ``--cpu`` it needs a CUDA card and exits non-zero where there is
+none.
 """
 
 from __future__ import annotations
+
+import argparse
+import sys
 
 import numpy as np
 import torch
@@ -22,9 +29,25 @@ def entry(device) -> tuple[RxBlockOutput, RxSessionState]:
     return rx_block(iq, RxSessionState.init(BATCH, device))
 
 
-if __name__ == "__main__":
-    dev = "cuda" if torch.cuda.is_available() else "cpu"
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="python -m m17_sdr_tpu_torch.entry")
+    parser.add_argument("--cpu", action="store_true",
+                        help="run on the CPU through the plain versions")
+    args = parser.parse_args(argv)
+    if args.cpu:
+        dev = "cpu"
+    elif torch.cuda.is_available():
+        dev = "cuda"
+    else:
+        print("m17_sdr_tpu_torch.entry: no CUDA card; pass --cpu to run on the CPU",
+              file=sys.stderr)
+        return 1
     out, _ = entry(dev)
     if dev == "cuda":
         torch.cuda.synchronize()
     print(f"entry ok on {dev}: stream_valid {tuple(out.stream_valid.shape)}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -87,9 +87,8 @@ def viterbi_decode_cuda(soft: torch.Tensor):
         raise ValueError("viterbi_decode_cuda: batch too large for int indexing")
     bits = torch.empty((n, t_steps), dtype=torch.uint8, device=soft.device)
     metric = torch.empty((n,), dtype=torch.float32, device=soft.device)
-    dec = torch.empty((t_steps, n), dtype=torch.int16, device=soft.device)
     with torch.cuda.device(soft.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.VITERBI.launch(flat.data_ptr(), bits.data_ptr(), metric.data_ptr(),
-                              dec.data_ptr(), n, t_steps, ctypes.c_void_p(stream))
+                              n, t_steps, ctypes.c_void_p(stream))
     return bits.reshape(*batch, t_steps), metric.reshape(tuple(batch))

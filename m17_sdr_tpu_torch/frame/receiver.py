@@ -4,14 +4,15 @@ Port of ``m17_sdr_tpu.frame.receiver``; see that module for the design
 (delayed masked emission for bit slips, in-lock resync, frames gathered
 after the scan from the compacted slot stream).
 
-The scan has two versions with one contract, ``(ext, state) ->
-(slot_val [B, S2] f32, flags [B, S2] i32, state)``:
+The scan has two versions with one contract, ``(samples [B, S2], state)
+-> (slot_val [B, S2] f32, flags [B, S2] i32, state)``, the filter running
+over the 30-sample history ``state.window[:, 1:]`` in front of the block:
 
 * ``receiver_scan_ref``, plain PyTorch: the 80-filter matched-filter
   bank for every step, then a per-step loop over ``_scan_step``;
 * ``receiver_scan_cuda``, the hand-written kernel
   ``csrc/receiver_scan.cu``: one thread per channel walks the block and
-  evaluates the filter only at the channel's current phase.
+  evaluates the filter only at the channel's clk steps and current phase.
 
 Numerics follow the JAX package's XLA formulation: filter operands are
 rounded to bf16, each output is the f32 sum of the products in tap
@@ -246,13 +247,14 @@ def pack_flags(valid, done, parse, aos, los, slip, slipped, sync_type) -> torch.
             + slipped.to(i32) * F_SLIPFRAME + (sync_type.to(i32) << F_TYPE_SHIFT))
 
 
-def receiver_scan_ref(ext: torch.Tensor, state: ReceiverState):
-    """Plain PyTorch scan over one block, on any device.
+def receiver_scan_ref(samples: torch.Tensor, state: ReceiverState):
+    """Plain PyTorch scan over one [B, S2] block, on any device.
 
-    ext: [B, S2+30] samples with the 30-sample history in front.
-    Returns (slot_val [B, S2] f32, flags [B, S2] i32, new state); the
-    state's ``window`` and ``sym_hist`` are left to the caller.
+    The filter runs over ``ext = state.window[:, 1:] ++ samples``.
+    Returns (slot_val [B, S2] f32, flags [B, S2] i32, new state) with the
+    next ``window``; ``sym_hist`` is left to the caller.
     """
+    ext = torch.cat([state.window[:, 1:], samples], dim=-1)
     mf_all = mf_bank(ext).permute(2, 0, 1).contiguous()       # [S2, B, 80]
     ys = []
     for t in range(mf_all.shape[0]):
@@ -261,7 +263,7 @@ def receiver_scan_ref(ext: torch.Tensor, state: ReceiverState):
     (slot_val, valid, done, stype, parse, aos, los, slip, slipped) = (
         torch.stack(col, dim=1) for col in zip(*ys))
     flags = pack_flags(valid, done, parse, aos, los, slip, slipped, stype)
-    return slot_val, flags, state
+    return slot_val, flags, state._replace(window=ext[:, -TIMING_FILTER_TAPS:])
 
 
 # the ReceiverState fields the kernel carries, in its argument order
@@ -269,45 +271,59 @@ _KERNEL_FIELDS = ("clk", "thr", "index", "fclk", "ferr", "sync_type",
                   "mf_sum", "mf_dif", "pending",
                   "pending_valid", "flock", "sync_pass", "slip_in_frame",
                   "sync_win")
+# the sync patterns go to the kernel by value, from host memory
+_PATS_HOST = np.ascontiguousarray(SYNC_PATTERNS, dtype=np.float32)
 _KERNEL_DTYPES = {"mf_sum": torch.float32, "mf_dif": torch.float32,
                   "pending": torch.float32, "sync_win": torch.float32,
                   "pending_valid": torch.bool, "flock": torch.bool,
                   "sync_pass": torch.bool, "slip_in_frame": torch.bool}
 
 
-def receiver_scan_cuda(ext: torch.Tensor, state: ReceiverState):
-    """The CUDA kernel K2: same contract as ``receiver_scan_ref``."""
-    _build.check_cuda_input("receiver_scan_cuda", ext, torch.float32, 2)
-    b, ext_len = ext.shape
-    s2 = ext_len - (TIMING_FILTER_TAPS - 1)
-    if s2 <= 0:
-        raise ValueError(f"receiver_scan_cuda: ext of length {ext_len} holds no step")
-    dev = ext.device
+def receiver_scan_cuda(samples: torch.Tensor, state: ReceiverState):
+    """The CUDA kernel K2: same contract as ``receiver_scan_ref``.
+
+    The kernel reads ``samples`` and ``window`` itself, with their
+    strides, so no ``ext`` is built; slot values and flags come back as
+    contiguous [B, S2] tensors, the next window as a contiguous [B, 31].
+    """
+    _build.check_cuda_input("receiver_scan_cuda", samples, torch.float32, 2,
+                            contiguous=False)
+    b, s2 = samples.shape
+    if s2 == 0:
+        raise ValueError("receiver_scan_cuda: a block of 0 samples holds no step")
+    dev = samples.device
+    window = state.window
+    _build.check_cuda_input("receiver_scan_cuda: state.window", window, torch.float32, 2,
+                            contiguous=False)
+    if window.shape != (b, TIMING_FILTER_TAPS) or window.device != dev:
+        raise ValueError(f"receiver_scan_cuda: state.window must be [B, "
+                         f"{TIMING_FILTER_TAPS}] on {dev}")
     ins = []
     for name in _KERNEL_FIELDS:
         x = getattr(state, name)
         dtype = _KERNEL_DTYPES.get(name, torch.int32)
         _build.check_cuda_input(f"receiver_scan_cuda: state.{name}", x, dtype,
-                         2 if name == "sync_win" else 1)
+                                2 if name == "sync_win" else 1)
         if x.shape[0] != b or x.device != dev:
-            raise ValueError(f"receiver_scan_cuda: state.{name} does not match ext")
+            raise ValueError(f"receiver_scan_cuda: state.{name} does not match samples")
         ins.append(x)
     if state.sync_win.shape[1] != SYNC_SYMBOLS:
         raise ValueError("receiver_scan_cuda: sync_win must be [B, 8]")
     outs = [torch.empty_like(x) for x in ins]
-    ext_t = ext.t().contiguous()                               # [S2+30, B]
+    window_out = torch.empty((b, TIMING_FILTER_TAPS), dtype=torch.float32, device=dev)
     taps = on_device(_BANK_BF16, dev)
-    pats = on_device(SYNC_PATTERNS, dev)
-    slot = torch.empty((s2, b), dtype=torch.float32, device=dev)
-    flags = torch.empty((s2, b), dtype=torch.int32, device=dev)
+    slot = torch.empty((b, s2), dtype=torch.float32, device=dev)
+    flags = torch.empty((b, s2), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _build.RECEIVER_SCAN.launch(
-            ext_t.data_ptr(), taps.data_ptr(), pats.data_ptr(),
+            samples.data_ptr(), *samples.stride(), window.data_ptr(), *window.stride(),
+            taps.data_ptr(), _PATS_HOST.ctypes.data,
             *(x.data_ptr() for x in ins), *(x.data_ptr() for x in outs),
-            slot.data_ptr(), flags.data_ptr(), b, s2, ctypes.c_void_p(stream))
-    new_state = state._replace(**dict(zip(_KERNEL_FIELDS, outs)))
-    return slot.t(), flags.t(), new_state
+            window_out.data_ptr(), slot.data_ptr(), flags.data_ptr(), b, s2,
+            ctypes.c_void_p(stream))
+    new_state = state._replace(window=window_out, **dict(zip(_KERNEL_FIELDS, outs)))
+    return slot, flags, new_state
 
 
 def receive_block(samples: torch.Tensor, state: ReceiverState,
@@ -320,9 +336,8 @@ def receive_block(samples: torch.Tensor, state: ReceiverState,
     """
     b, s2 = samples.shape
     dev = samples.device
-    ext = torch.cat([state.window[:, 1:], samples], dim=-1)
     scan = receiver_scan_cuda if _build.use_kernel_for(samples, use_kernel) else receiver_scan_ref
-    slot_vals, flags, state2 = scan(ext, state)
+    slot_vals, flags, state2 = scan(samples, state)
 
     slot_valids = (flags & F_VALID) != 0
     frame_done = (flags & F_DONE) != 0
@@ -370,4 +385,4 @@ def receive_block(samples: torch.Tensor, state: ReceiverState,
         frame_parse=frame_parse, frame_slipped=frame_slipped,
         aos=aos_any, los=los_any, locked=state2.flock, n_slips=n_slips,
     )
-    return events, state2._replace(window=ext[:, -TIMING_FILTER_TAPS:], sym_hist=sym_hist)
+    return events, state2._replace(sym_hist=sym_hist)

@@ -68,15 +68,13 @@ def test_receiver_scan_kernel_matches_ref_under_drift(cuda):   # noqa: F811
                      for k in range(16) for w in wave]).astype(np.float32)
     wave = torch.as_tensor(wave).to(cuda)
     st_k = st_r = tr.ReceiverState.init(wave.shape[0], cuda)
-    window = st_k.window
     before = _build.RECEIVER_SCAN.launches
     nblk = wave.shape[1] // S2
     slips = frames = 0
     for blk in range(nblk):
-        ext = torch.cat([window[:, 1:], wave[:, blk * S2:(blk + 1) * S2]], dim=1)
-        window = ext[:, -31:]
-        slot_k, flags_k, st_k = tr.receiver_scan_cuda(ext, st_k)
-        slot_r, flags_r, st_r = tr.receiver_scan_ref(ext, st_r)
+        samples = wave[:, blk * S2:(blk + 1) * S2].contiguous()
+        slot_k, flags_k, st_k = tr.receiver_scan_cuda(samples, st_k)
+        slot_r, flags_r, st_r = tr.receiver_scan_ref(samples, st_r)
         assert torch.equal(slot_k, slot_r), blk
         assert torch.equal(flags_k, flags_r), blk
         for f in tr.ReceiverState._fields:
@@ -113,7 +111,78 @@ def test_kernel_wrappers_check_inputs(cuda):   # noqa: F811
         tv.viterbi_decode_cuda(torch.zeros(4, 296, dtype=torch.float64, device=cuda))
     st = tr.ReceiverState.init(4, cuda)
     with pytest.raises(ValueError):
-        tr.receiver_scan_cuda(torch.zeros(S2 + 30, 4, device=cuda).t(), st)
+        tr.receiver_scan_cuda(torch.zeros(4, S2, dtype=torch.float64, device=cuda), st)
     with pytest.raises(ValueError):
-        tr.receiver_scan_cuda(torch.zeros(4, S2 + 30, device=cuda),
+        tr.receiver_scan_cuda(torch.zeros(4, S2, device=cuda),
                               st._replace(clk=st.clk.to(torch.int64)))
+    with pytest.raises(ValueError):
+        tr.receiver_scan_cuda(torch.zeros(4, S2, device=cuda),
+                              st._replace(window=st.window[:, 1:]))
+    with pytest.raises(ValueError):
+        tr.receiver_scan_cuda(torch.zeros(4, 0, device=cuda), st)
+
+
+@pytest.mark.parametrize("n", [1, 15, 17, 12289])
+@pytest.mark.parametrize("steps", [244, 148, 210, 205])
+def test_viterbi_kernel_ragged_batches(cuda, steps, n):   # noqa: F811
+    """Trellis counts that leave the last block of 16 part empty, down to
+    one trellis, with erasures: bits and metric equal."""
+    rng = np.random.default_rng(steps * 100003 + n)
+    soft = rng.normal(size=(n, 2 * steps)).astype(np.float32)
+    soft[:, 5::12] = 0.0
+    soft[:, 11::12] = 0.0
+    x = torch.as_tensor(soft).to(cuda)
+    bits_k, met_k = tv.viterbi_decode_cuda(x)
+    bits_r, met_r = tv.viterbi_decode_ref(x)
+    torch.cuda.synchronize()
+    assert bits_k.shape == (n, steps) and bits_k.is_contiguous()
+    assert torch.equal(bits_k, bits_r)
+    assert torch.equal(met_k, met_r)
+
+
+_WARM = {}
+
+
+def _warm_start(cuda, b: int):
+    """A soft waveform [b, n] of the fixture sessions after the front end,
+    channel c delayed by 37 c samples, and the plain scan's state after
+    its first 768 samples (hunting, acquiring and locked channels; the
+    window a strided view)."""
+    if b not in _WARM:
+        iq = torch.as_tensor(_fixture_iq()).to(cuda)
+        fe = RxFrontEndState.init(iq.shape[0], cuda)
+        flock = torch.zeros(iq.shape[0], dtype=torch.bool, device=cuda)
+        soft = []
+        for i in range(iq.shape[2] // 1920):
+            s, _, fe = rx_front_end(iq[..., i * 1920:(i + 1) * 1920], fe, flock)
+            soft.append(s)
+        wave = torch.cat(soft, dim=1)                      # [8, 4992]
+        idx = (torch.arange(wave.shape[1], device=cuda)[None, :]
+               + 37 * torch.arange(b, device=cuda)[:, None]) % wave.shape[1]
+        wave = torch.gather(wave[torch.arange(b, device=cuda) % wave.shape[0]], 1, idx)
+        _, _, st = tr.receiver_scan_ref(wave[:, :768], tr.ReceiverState.init(b, cuda))
+        _WARM[b] = (wave, st)
+    return _WARM[b]
+
+
+@pytest.mark.parametrize("s2", [2, 31, 97, 384, 777])
+@pytest.mark.parametrize("b", [1, 33, 4096])
+def test_receiver_scan_kernel_block_shapes(cuda, b, s2):   # noqa: F811
+    """Channel counts that leave the last block of channels part empty,
+    blocks shorter than the filter, odd, and longer than one staged chunk,
+    chained over 3 blocks from a warmed state, the samples a strided view:
+    slots, flags and every state field equal, the window included; the
+    outputs contiguous [B, S2]."""
+    wave, st = _warm_start(cuda, b)
+    st_k = st_r = st
+    for blk in range(3):
+        samples = wave[:, 768 + blk * s2:768 + (blk + 1) * s2]
+        slot_k, flags_k, st_k = tr.receiver_scan_cuda(samples, st_k)
+        slot_r, flags_r, st_r = tr.receiver_scan_ref(samples, st_r)
+        assert slot_k.shape == flags_k.shape == (b, s2)
+        assert slot_k.is_contiguous() and flags_k.is_contiguous()
+        assert torch.equal(slot_k, slot_r), blk
+        assert torch.equal(flags_k, flags_r), blk
+        assert torch.equal(st_k.window, st_r.window), blk
+        for f in tr.ReceiverState._fields:
+            assert torch.equal(getattr(st_k, f), getattr(st_r, f)), (f, blk)

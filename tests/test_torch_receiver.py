@@ -142,6 +142,6 @@ def test_receive_block_matches_jax(hard_wave):
 def test_kernel_wrapper_rejects_cpu_tensors():
     st = tr.ReceiverState.init(2, "cpu")
     with pytest.raises(ValueError):
-        tr.receiver_scan_cuda(torch.zeros(2, S2 + 30), st)
+        tr.receiver_scan_cuda(torch.zeros(2, S2), st)
     with pytest.raises(ValueError):
         tr.receive_block(torch.zeros(2, S2), st, use_kernel=True)
