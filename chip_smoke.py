@@ -18,7 +18,8 @@ Needs one CUDA card; exits non-zero without one.  Phases, each printed:
 4. the main path, ``rx_stream`` at B=4096 and T=1920 over the same mix,
    on the kernels and on the plain versions: every output field and the
    final state must be equal, and both kernels must have been launched
-   by the kernel run; times per block;
+   by the kernel run; times per block; then device time, launches and the
+   top kernels per block under torch.profiler;
 5. the main path against the JAX package's recorded decode of the
    committed fixture sessions (m17_sdr_tpu_torch/data/rx_fixture.npz),
    tiled to B=4096: every recorded field must equal the record;
@@ -55,6 +56,7 @@ F32_OPS_PER_S = 67e12
 K1_OPS_PER_STEP = 68     # 16 states x (2 adds, compare, select) + 4 branch adds
 K2_OPS_PER_CLK = 122     # 2 filters x (31 products + 30 sums) at a clk step
 K2_BLOCK = NBLK // 2     # the mid-session block K2 is timed on
+PROFILE_BLOCKS = 4       # steady-state blocks of the main path under the profiler
 
 
 def fail(msg: str) -> None:
@@ -270,6 +272,7 @@ def main() -> int:
             fail("main path final state: " + first_diff(name, a, b, False))
     print(f"phase 4 main path: all {len(out_k._fields)} output fields and the final "
           f"state equal (floats to {FLOAT_TOL}); launches {launches}", flush=True)
+    profile_main_path(blocks, dev, rx_stream, RxSessionState)
 
     # ---- phase 5: the main path against the JAX record
     iq = torch.as_tensor(fx["iq"]).reshape(-1, 2, NBLK, T).permute(0, 2, 1, 3)
@@ -311,6 +314,36 @@ def main() -> int:
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0
+
+
+def profile_main_path(blocks, dev, rx_stream, session_state) -> None:
+    """Device time and kernel launches per block of the kernel path, by
+    torch.profiler over PROFILE_BLOCKS steady-state blocks."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, state = rx_stream(blocks[:, :1], session_state.init(B, dev), afc_enabled=True,
+                         equalize="auto")
+    torch.cuda.synchronize()
+    run = blocks[:, 1:1 + PROFILE_BLOCKS]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rx_stream(run, state, afc_enabled=True, equalize="auto")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = [getattr(e, "self_device_time_total", 0.0) for e in kern]
+    if not kern or sum(dev_us) == 0:
+        print("phase 4 profile: the profiler recorded no device time (not measured)",
+              flush=True)
+        return
+    busy_ms = sum(dev_us) / 1e3 / PROFILE_BLOCKS
+    top = sorted(zip(dev_us, kern), key=lambda p: -p[0])[:8]
+    print(f"phase 4 profile ({PROFILE_BLOCKS} blocks under torch.profiler): device busy "
+          f"{busy_ms:.3f} ms/block of {wall * 1e3 / PROFILE_BLOCKS:.1f} ms/block wall; "
+          f"{sum(e.count for e in kern) / PROFILE_BLOCKS:.0f} device launches/block; top: "
+          + "; ".join(f"{e.key[:60]} {us / 1e3 / PROFILE_BLOCKS:.3f} ms "
+                      f"x{e.count // PROFILE_BLOCKS}" for us, e in top), flush=True)
 
 
 def _fixture_path():

@@ -105,10 +105,10 @@ _L = ctypes.c_longlong
 # (soft [N, 2T] f32, bits [N, T] u8, metric [N] f32, n, t, stream)
 VITERBI = CudaKernel("viterbi.cu", "m17_viterbi_decode", [_P, _P, _P, _I, _I, _P])
 
-# (samples [B, S2] f32 and window [B, 31] f32, each with its two element strides,
-#  taps [2, 40, 31] f32, pats [6, 8] f32 in host memory, 14 state pointers in, 14 state
-#  pointers out, window out [B, 31] f32, slot [B, S2] f32, flags [B, S2] i32,
-#  b, s2, stream) -- see csrc/receiver_scan.cu
+# (samples [B, S2] f32 and window [B, 31] f32, each with its two element
+#  strides, taps [2, 40, 31] f32, pats [6, 8] f32 in host memory, 14 state
+#  pointers in, 14 state pointers out, window out [B, 31] f32, slot [B, S2]
+#  f32, flags [B, S2] i32, b, s2, stream) -- see csrc/receiver_scan.cu
 RECEIVER_SCAN = CudaKernel("receiver_scan.cu", "m17_receiver_scan",
                            [_P, _L, _L, _P, _L, _L, _P, _P] + [_P] * 14 + [_P] * 14
                            + [_P, _P, _P, _I, _I, _P])

@@ -11,18 +11,20 @@
 // the tap-ordered filter sum is one dependent chain, which cannot be split
 // across lanes and stay bit-exact.  A block holds kChannels channels in
 // one warp, so the 4096 channels of the main path are 512 blocks, about
-// one warp on each of the four schedulers of every SM: the scan is a
-// latency chain, and a scheduler that holds one channel group issues its
-// chain without waiting behind another.  All 32 lanes stage and write;
-// kChannels lanes scan.
+// one warp on each of the four schedulers of every SM.  The scan is a chain
+// of dependent steps, so a scheduler with one channel group runs it at the
+// chain's latency; more channels a warp, or more warps a scheduler, do
+// not shorten it.  All 32 lanes stage and write; kChannels lanes scan.
 //
 // Per chunk of up to kChunk steps (a main-path block of 384 is one):
 //  * staging: the 31-sample window and the samples [B, S2] (both taken
-//    with their strides; row-major on the main path) are read with coalesced row reads, rounded to bf16
-//    once, and stored time-major in shared memory, rows padded to
-//    kChannels + 1 floats so that neither the transposing store nor the
-//    scan's reads conflict on banks.  The raw last 31 samples of the
-//    history are written out as the next window;
+//    with their strides; row-major on the main path) are copied with
+//    cp.async, neighbouring lanes on neighbouring samples of a row, all
+//    copies in flight at once, into shared memory time-major, rows padded
+//    to kChannels + 1 floats so that neither the transposing copy nor the
+//    scan's reads conflict on banks.  Each lane then rounds what it copied
+//    to bf16, once, and writes the raw last 31 samples out as the next
+//    window.  The tap banks are copied beside them, 16 bytes at a time;
 //  * scan: the loop body is "off steps until the next clk step, then the
 //    clk step", so the lanes of a warp, whose clk phases differ, run the
 //    31-tap matched and derivative filters together rather than each on
@@ -30,7 +32,8 @@
 //    dependent add chain; the channel's 2 x 31 taps stay in registers and
 //    are re-read from the shared banks only when its phase index moves.
 //    The sync correlation runs only under the TPU kernel's gate (hunting,
-//    or within +-2 symbols of the frame boundary);
+//    or within +-2 symbols of the frame boundary), and a hunting channel
+//    skips it when no sync pattern can pass (see sync_check);
 //  * output: slot values and flags go to shared memory, channel-major with
 //    an odd row stride, and are written as [B, S2] row-major rows.
 //
@@ -44,8 +47,8 @@
 //
 // What bounds it on an H100: bytes are ~20 MB a block at B=4096 (6 us at
 // 3.35 TB/s), operations ~1.5 us; the real floor is the serial chain per
-// channel, 192 symbols of a 31-add dependent sum plus the framer, about
-// 20-25 us.
+// channel: 192 symbols, each an off step and a clk step whose 31-add
+// filter sum and framer update depend on the step before.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -64,6 +67,8 @@ constexpr int kMaxFrameErrors = 5;
 constexpr int kThreshUnlocked = 10;
 constexpr int kThreshLocked = 80;
 constexpr int kTypeEot = 5;
+constexpr int kTypeFirstPayload = 1;  // link (LSF) .. BERT
+constexpr int kTypeLastPayload = 4;
 constexpr int kUnlockedMaxVotes = 0;
 constexpr int kLockedMaxVotes = 1;
 constexpr float kUnlockedMaxVariance = 0.3f;
@@ -110,8 +115,31 @@ struct Sc {
   bool uok;  // unlocked (acquisition) gate
 };
 
-// frame/sync.py:sync_check followed by locked_pass / unlocked_pass
-__device__ __forceinline__ Sc sync_check(const float* win, const Patterns& pats) {
+// frame/sync.py:sync_check followed by locked_pass / unlocked_pass.  A
+// hunting channel (!locked) uses only the acquisition gate, which needs a
+// payload pattern that no nonzero symbol disagrees with in sign; when no
+// pattern qualifies, the gate is closed whatever the correlation says, and
+// the correlation is skipped (ftype and lok are read only when locked).
+__device__ __forceinline__ Sc sync_check(const float* win, const Patterns& pats, bool locked) {
+  unsigned spos = 0, sneg = 0;  // bit i: win[i] > 0, win[i] < 0
+#pragma unroll
+  for (int i = 0; i < kSync; ++i) {
+    spos |= (win[i] > 0.0f ? 1u : 0u) << i;
+    sneg |= (win[i] < 0.0f ? 1u : 0u) << i;
+  }
+  // bit i set where a nonzero symbol's sign disagrees with pattern p
+  auto disagree = [&](int p) {
+    const unsigned ppos = (unsigned)(pats.pos >> (kSync * p)) & 0xffu;
+    return (spos & ~ppos) | (sneg & ppos);
+  };
+  Sc r = {0, false, false};
+  if (!locked) {
+    bool open = false;
+#pragma unroll
+    for (int p = kTypeFirstPayload; p <= kTypeLastPayload; ++p) open |= disagree(p) == 0;
+    if (!open) return r;
+  }
+
   int best = 0;
   float bmax = 0.0f;
 #pragma unroll
@@ -125,20 +153,11 @@ __device__ __forceinline__ Sc sync_check(const float* win, const Patterns& pats)
       best = p;
     }
   }
-  Sc r;
   r.ftype = bmax > 0.0f ? best : 0;
-  // votes: the nonzero symbols whose sign disagrees with the winning
-  // pattern (type 0 when none is positive) -- (nnz - agreement) / 2
-  unsigned spos = 0, sneg = 0;
-#pragma unroll
-  for (int i = 0; i < kSync; ++i) {
-    spos |= (win[i] > 0.0f ? 1u : 0u) << i;
-    sneg |= (win[i] < 0.0f ? 1u : 0u) << i;
-  }
-  const unsigned ppos = (unsigned)(pats.pos >> (kSync * r.ftype)) & 0xffu;
-  const int votes = __popc((spos & ~ppos) | (sneg & ppos));
-  const bool payload = r.ftype >= 1 && r.ftype <= 4;
-  r.lok = r.uok = false;
+  // votes = (nnz - agreement) / 2 with the winning pattern (type 0 when
+  // none is positive): the nonzero symbols that disagree with it
+  const int votes = __popc(disagree(r.ftype));
+  const bool payload = r.ftype >= kTypeFirstPayload && r.ftype <= kTypeLastPayload;
   if (votes <= kLockedMaxVotes && payload) {
     float mmax = fabsf(win[0]), mmin = fabsf(win[0]);
 #pragma unroll
@@ -245,7 +264,7 @@ struct Channel {
     }
     const bool near_boundary = fclk >= kSync - 2 && fclk <= kSync + 2;
     Sc sc = {0, false, false};
-    if (consumed && (!flock0 || near_boundary)) sc = sync_check(win, pats);
+    if (consumed && (!flock0 || near_boundary)) sc = sync_check(win, pats, flock0);
 
     const bool at8 = consumed && flock0 && fclk == kSync;
     if (at8) {
