@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's receive path on one CUDA card and check it.
+"""Drive the PyTorch port's receive and transmit paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -23,8 +24,26 @@ Needs one CUDA card; exits non-zero without one.  Phases, each printed:
 5. the main path against the JAX package's recorded decode of the
    committed fixture sessions (m17_sdr_tpu_torch/data/rx_fixture.npz),
    tiled to B=4096: every recorded field must equal the record;
-6. a ``kernels`` summary, then one JSON line with each kernel's launches,
-   error, times and bound, then the last line ``{"ok": true, "device": ...}``.
+6. the port's TX against the JAX record: the fixture's 8 sessions built
+   on the card from their payloads, the record's carrier offset and noise
+   applied on the host, quantized: within TX_LSB of the recorded int16
+   IQ, and ``rx_stream`` of it decodes every recorded field as recorded
+   (a decoded field where its frame type's valid flag is set: a slot
+   holding no such frame decodes noise, which a few LSB may change);
+7. the bench mix built on the card by the port (``make_bench_blocks`` at
+   B=4096) through ``rx_stream``: every routed stream payload equals the
+   payload sent at its FN, and channels c % 13 == 0 route all 8 frames;
+   TX build time and ms/block;
+8. the BER sweep of SWEEP_POD_r5.json (16 points 8-20 dB, 256 channels a
+   point, 20 frames) on the card with a seeded generator: each point's
+   frame recovery within ``ber_sweep.recovery_tolerance`` of the recorded
+   curve, no bit errors at 19.2 and 20 dB; wall time and ms/block; then a BERT
+   and a packet session at B=256 through ``rx_stream`` on the kernels and
+   on the plain versions: every output field and the final state equal;
+9. a ``kernels`` summary, then one JSON line with each kernel's launches
+   (summed over the paths of phases 4 and 6-8, each counted from 0 just
+   before it), error, times and bound, then the last line
+   ``{"ok": true, "device": ...}``.
 
 A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (each input read once, each output written once) over
@@ -41,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -57,6 +77,16 @@ K1_OPS_PER_STEP = 68     # 16 states x (2 adds, compare, select) + 4 branch adds
 K2_OPS_PER_CLK = 122     # 2 filters x (31 products + 30 sums) at a clk step
 K2_BLOCK = NBLK // 2     # the mid-session block K2 is timed on
 PROFILE_BLOCKS = 4       # steady-state blocks of the main path under the profiler
+TX_LSB = 20              # port TX vs the JAX record, int16 LSB (3e-5 each): 6e-4
+SWEEP_SEED = 0           # the BER sweep's noise generator
+SWEEP_CLEAN_DB = (19.2, 20.0)   # sweep points that must show no bit error
+PLAIN_B = 256            # channels of the kernel-vs-plain TX sessions
+PLAIN_BERT_FRAMES = 8
+PLAIN_PACKET_BYTES = 100
+# the fixture's impairments (tests/test_torch_fixture.py)
+FIXTURE_NOISY = slice(4, 8)
+FIXTURE_CARRIER_HZ = 300.0
+FIXTURE_SIGMA = 0.02
 
 
 def fail(msg: str) -> None:
@@ -130,6 +160,33 @@ def staggered_blocks(iq16: np.ndarray, dev) -> torch.Tensor:
     return torch.gather(tiled, 1, idx[:, :, None, None].expand(B, NBLK, 2, T)).contiguous()
 
 
+def reset_launches(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def read_launches(path: str, kernels, paths: dict) -> dict:
+    """Launch counts since reset_launches, recorded under ``path``; fails
+    if a kernel was not launched."""
+    torch.cuda.synchronize()
+    got = {k.symbol: k.launches for k in kernels}
+    for sym, n in got.items():
+        if n == 0:
+            fail(f"{path} never launched {sym}")
+    paths[path] = got
+    return got
+
+
+def compare_outputs(what: str, out_k, st_k, out_r, st_r) -> None:
+    for name in out_k._fields:
+        a, b = getattr(out_k, name), getattr(out_r, name)
+        if not same(a, b):
+            fail(f"{what}: " + first_diff(name, a, b, a.dim() > 1))
+    for (name, a), (_, b) in zip(flatten_state(st_k), flatten_state(st_r)):
+        if not same(a, b):
+            fail(f"{what} final state: " + first_diff(name, a, b, False))
+
+
 def flatten_state(state, prefix=""):
     for name, x in state._asdict().items():
         if isinstance(x, tuple):
@@ -152,6 +209,8 @@ def main() -> int:
     from m17_sdr_tpu_torch.frame.receiver import (
         _KERNEL_FIELDS, ReceiverState, receiver_scan_cuda, receiver_scan_ref)
     from m17_sdr_tpu_torch.pipeline.rx import RxSessionState, rx_stream
+
+    paths = {}                 # path -> {kernel symbol: launches}
 
     # ---- phase 1: the card and the build
     card = smi("name,power.limit").splitlines()[0]
@@ -255,21 +314,12 @@ def main() -> int:
         torch.cuda.synchronize()
         per_block = (time.perf_counter() - t0) / NBLK
         if use_kernel is None:
-            launches = {k.symbol: k.launches for k in _build.KERNELS}
+            launches = read_launches("main path", _build.KERNELS, paths)
         legs[leg] = (out, state, per_block)
         print(f"phase 4 main path ({leg}): {per_block * 1e3:.1f} ms/block, "
               f"{B * T / per_block / 1e6:.1f} M channel-samples/s", flush=True)
-    for k in _build.KERNELS:
-        if launches[k.symbol] == 0:
-            fail(f"the main path never launched {k.symbol}")
     (out_k, st_k, _), (out_r, st_r, _) = legs["kernel"], legs["plain"]
-    for name in out_k._fields:
-        a, b = getattr(out_k, name), getattr(out_r, name)
-        if not same(a, b):
-            fail("main path: " + first_diff(name, a, b, a.dim() > 1))
-    for (name, a), (_, b) in zip(flatten_state(st_k), flatten_state(st_r)):
-        if not same(a, b):
-            fail("main path final state: " + first_diff(name, a, b, False))
+    compare_outputs("main path", out_k, st_k, out_r, st_r)
     print(f"phase 4 main path: all {len(out_k._fields)} output fields and the final "
           f"state equal (floats to {FLOAT_TOL}); launches {launches}", flush=True)
     profile_main_path(blocks, dev, rx_stream, RxSessionState)
@@ -290,12 +340,17 @@ def main() -> int:
     print(f"phase 5 fixture: {', '.join(recorded)} equal to the JAX record on all {B} "
           f"channels ({routed} stream frames routed)", flush=True)
 
-    # ---- phase 6: summary
+    tx_fixture(fx, dev, paths)
+    bench_mix(dev, paths)
+    sweep(dev, paths, card)
+
+    # ---- phase 9: summary
     sources = {"viterbi": ("m17_sdr_tpu_torch/csrc/viterbi.cu",
                            "m17_sdr_tpu/fec/viterbi_pallas.py:58", _build.VITERBI),
                "receiver_scan": ("m17_sdr_tpu_torch/csrc/receiver_scan.cu",
                                  "m17_sdr_tpu/frame/receiver_pallas.py:73",
                                  _build.RECEIVER_SCAN)}
+    launches = {k.symbol: sum(p[k.symbol] for p in paths.values()) for k in _build.KERNELS}
     kernels = []
     for name, (source, replaces, k) in sources.items():
         r = report[name]
@@ -305,15 +360,185 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
                         "bound_us": r["bound_ms"] * 1e3, "share": r["bound_ms"] / r["ms"]})
-    print("kernels " + "; ".join(
-        f"{k['name']}: {k['launches']} launches on the main path, parity ok"
-        for k in kernels), flush=True)
+    summary = []
+    for name, (_, _, k) in sources.items():
+        per_path = ", ".join(f"{p} {n[k.symbol]}" for p, n in paths.items())
+        summary.append(f"{name}: {launches[k.symbol]} launches on the paths ({per_path}), "
+                       "parity ok")
+    print("kernels " + "; ".join(summary), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0
+
+
+def tx_fixture(fx: dict, dev, paths: dict) -> None:
+    """Phase 6: the fixture's sessions rebuilt by the port's TX on the card."""
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.pipeline import tx as txp
+    from m17_sdr_tpu_torch.pipeline.benchdata import bench_sessions
+    from m17_sdr_tpu_torch.pipeline.rx import RxSessionState, rx_stream
+
+    payloads = torch.as_tensor(fx["payloads"]).to(dev)
+    b0 = payloads.shape[0]
+    lsf = bench_sessions(dev)[0][:b0]          # the fixture's LSF: AB1CDE <- G4GUO
+    iq, _ = txp.dibits_to_iq(txp.build_voice_session_dibits(lsf, payloads))
+    # the record's impairments, on the host in float64 as the record was made
+    iq = iq.cpu().numpy().astype(np.float64)
+    t = iq.shape[-1]
+    z = iq[:, 0] + 1j * iq[:, 1]
+    noisy = FIXTURE_NOISY
+    z[noisy] *= np.exp(2j * np.pi * FIXTURE_CARRIER_HZ / 48_000 * np.arange(t))
+    noise_rng = np.random.default_rng(1)
+    z[noisy] += FIXTURE_SIGMA * (noise_rng.normal(size=z[noisy].shape)
+                                 + 1j * noise_rng.normal(size=z[noisy].shape))
+    iq16 = np.clip(np.round(np.stack([z.real, z.imag], axis=1) / 3.0e-5),
+                   -32768, 32767).astype(np.int16)
+    lsb = int(np.abs(iq16.astype(np.int32) - fx["iq"]).max())
+    if iq16.shape != fx["iq"].shape or lsb > TX_LSB:
+        fail(f"TX fixture: {iq16.shape} int16 IQ {lsb} LSB from the JAX record "
+             f"(limit {TX_LSB})")
+    blocks = torch.as_tensor(iq16).reshape(b0, 2, NBLK, T).permute(0, 2, 1, 3).to(dev)
+    reset_launches(_build.KERNELS)
+    out, _ = rx_stream(blocks, RxSessionState.init(b0, dev), afc_enabled=True,
+                       equalize="auto")
+    got = read_launches("tx fixture", _build.KERNELS, paths)
+    recorded = [k for k in fx if k not in ("iq", "payloads")]
+    valid_of = {"stream_fn": "stream_valid", "stream_payload": "stream_valid",
+                "lsf_bytes": "lsf_valid"}
+    for name in recorded:
+        a = getattr(out, name).cpu().to(torch.int64)
+        b = torch.as_tensor(fx[name]).to(torch.int64)
+        neq = a != b
+        if name in valid_of:
+            held = torch.as_tensor(fx[valid_of[name]])
+            neq &= held.reshape(held.shape + (1,) * (a.dim() - held.dim()))
+        if neq.any():
+            c, blk = neq.nonzero()[0].tolist()[:2]
+            fail(f"TX fixture decode: {name} differs at channel {c}, block {blk}")
+    print(f"phase 6 TX fixture: {b0} sessions built by the port on the card are within "
+          f"{lsb} LSB (limit {TX_LSB}) of the recorded int16 IQ; rx_stream decodes "
+          f"{', '.join(recorded)} as recorded ({int(out.stream_gate.sum())} stream frames "
+          f"routed); launches {got}", flush=True)
+
+
+def bench_mix(dev, paths: dict) -> None:
+    """Phase 7: the bench mix built on the card by the port, through rx_stream."""
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.pipeline.benchdata import (
+        FRAMES, SESSIONS, bench_sessions, make_bench_blocks)
+    from m17_sdr_tpu_torch.pipeline.rx import RxSessionState, rx_stream
+
+    build_s = []
+    for _ in range(2):                         # the first call includes one-time set-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocks, nblk = make_bench_blocks(B, device=dev)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+    iq = torch.stack(blocks, dim=1)            # [B, nblk, 2, T] int16
+    reset_launches(_build.KERNELS)
+    t0 = time.perf_counter()
+    out, _ = rx_stream(iq, RxSessionState.init(B, dev))
+    got = read_launches("bench mix", _build.KERNELS, paths)
+    per_block = (time.perf_counter() - t0) / nblk
+
+    sent = bench_sessions(dev)[1][torch.arange(B, device=dev) % SESSIONS]   # [B, 8, 16]
+    gate, fn = out.stream_gate, out.stream_fn
+    want = torch.gather(sent, 1, fn.clamp(0, FRAMES - 1).reshape(B, -1, 1).expand(-1, -1, 16))
+    ok = (fn.reshape(B, -1) < FRAMES) & (out.stream_payload.reshape(B, -1, 16) == want).all(-1)
+    bad = gate.reshape(B, -1) & ~ok
+    if bad.any():
+        c, j = bad.nonzero()[0].tolist()
+        fail(f"bench mix: channel {c} slot {j} routed FN {int(fn.reshape(B, -1)[c, j])} "
+             "with a payload other than the one sent")
+    # the unrotated channels (c % nblk == 0) hold the whole session in order
+    whole = torch.arange(B, device=dev) % nblk == 0
+    idx = torch.where(gate.reshape(B, -1), fn.reshape(B, -1).clamp(0, FRAMES), FRAMES)
+    hit = torch.zeros((B, FRAMES + 1), dtype=torch.int32, device=dev).scatter_add_(
+        1, idx, torch.ones_like(idx, dtype=torch.int32))
+    missing = whole & ~(hit[:, :FRAMES] > 0).all(-1)
+    if missing.any():
+        c = int(missing.nonzero()[0])
+        fail(f"bench mix: unrotated channel {c} routed FNs "
+             f"{(hit[c, :FRAMES] > 0).nonzero().flatten().tolist()}, not all {FRAMES}")
+    print(f"phase 7 bench mix: TX build of the {B}-channel mix on the card "
+          f"{build_s[0] * 1e3:.1f} ms (first call) / {build_s[1] * 1e3:.1f} ms; rx_stream "
+          f"{per_block * 1e3:.2f} ms/block over {nblk} blocks; {int(gate.sum())} routed "
+          f"stream payloads all equal to the payload sent at their FN; the "
+          f"{int(whole.sum())} unrotated channels route all {FRAMES} frames; launches {got}",
+          flush=True)
+
+
+def sweep(dev, paths: dict, card: str) -> None:
+    """Phase 8: the recorded BER sweep on the card, then kernel vs plain on
+    a BERT and a packet session."""
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.dsp import channel
+    from m17_sdr_tpu_torch.pipeline import tx as txp
+    from m17_sdr_tpu_torch.pipeline.benchdata import bench_sessions
+    from m17_sdr_tpu_torch.pipeline.ber_sweep import bert_sweep_counts, recovery_tolerance
+    from m17_sdr_tpu_torch.pipeline.loopback import _blockify
+    from m17_sdr_tpu_torch.pipeline.rx import RxSessionState, rx_stream
+
+    rec = json.loads((Path(__file__).resolve().parent / "SWEEP_POD_r5.json").read_text())
+    curve, cpp, nf = rec["curve"], rec["channels_per_point"], rec["frames_per_channel"]
+    snr_pts = np.float32([p["snr_db"] for p in curve])
+    snr = torch.as_tensor(np.repeat(snr_pts, cpp)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SWEEP_SEED)
+    nblk = (nf + 4) * 192 * 10 // T            # 2 preambles + frames + EOT + idle
+    reset_launches(_build.KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    err, bits, _, frames = bert_sweep_counts(snr, nf, generator=gen)
+    got = read_launches("ber sweep", _build.KERNELS, paths)
+    wall = time.perf_counter() - t0
+    err, bits = err.reshape(-1, cpp).sum(-1).cpu(), bits.reshape(-1, cpp).sum(-1).cpu()
+    frames = frames.reshape(-1, cpp).sum(-1).cpu()
+    rows = []
+    for i, p in enumerate(curve):
+        rate = int(frames[i]) / (nf * cpp)
+        tol = recovery_tolerance(p["frame_recovery"], cpp)
+        rows.append(f"{p['snr_db']:.1f} dB {rate:.4f}/{p['frame_recovery']:.4f} "
+                    f"ber {int(err[i]) / max(int(bits[i]), 1):.2e}")
+        if abs(rate - p["frame_recovery"]) > tol:
+            fail(f"BER sweep at {p['snr_db']:.1f} dB: frame recovery {rate:.4f} vs the "
+                 f"recorded {p['frame_recovery']:.4f} (tolerance {tol:.4f})")
+        if any(abs(p["snr_db"] - c) < 0.05 for c in SWEEP_CLEAN_DB) and int(err[i]):
+            fail(f"BER sweep at {p['snr_db']:.1f} dB: {int(err[i])} bit errors")
+    print(f"phase 8 BER sweep: {len(curve)} points x {cpp} channels x {nf} frames "
+          f"({snr.numel()} channels, {nblk} blocks) in {wall:.2f} s wall, "
+          f"{wall / nblk * 1e3:.1f} ms/block (TX, noise, rx_stream and the error count); "
+          f"frame recovery port/recorded and BER: {'; '.join(rows)}; launches {got}; {card}",
+          flush=True)
+
+    # kernel vs plain on real BERT and packet frames
+    g = torch.Generator(device=dev).manual_seed(SWEEP_SEED + 1)
+    pts = torch.linspace(8.0, 20.0, 16, device=dev).repeat_interleave(PLAIN_B // 16)
+    bert = txp.build_bert_session_dibits(PLAIN_B, PLAIN_BERT_FRAMES, device=dev)
+    lsf = bench_sessions(dev)[0][:1].expand(PLAIN_B, -1)
+    data = torch.randint(0, 256, (PLAIN_B, PLAIN_PACKET_BYTES), generator=g, device=dev,
+                         dtype=torch.uint8)
+    packet = txp.build_packet_session_dibits(lsf, data)
+    for name, dibits, snr_db in (("BERT", bert, pts), ("packet", packet, pts + 6.0)):
+        iq = channel.awgn(txp.dibits_to_iq(dibits)[0], snr_db, generator=g)
+        blocks = _blockify(iq)
+        t0 = time.perf_counter()
+        out_k, st_k = rx_stream(blocks, RxSessionState.init(PLAIN_B, dev))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out_r, st_r = rx_stream(blocks, RxSessionState.init(PLAIN_B, dev), use_kernel=False)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        compare_outputs(f"{name} session, kernel vs plain", out_k, st_k, out_r, st_r)
+        valid = out_k.bert_valid if name == "BERT" else out_k.packet_valid
+        print(f"phase 8 {name} session at B={PLAIN_B} ({blocks.shape[1]} blocks): every "
+              f"output field and the final state equal on the kernels and the plain "
+              f"versions ({int(valid.sum())} {name} frames decoded); "
+              f"{(t1 - t0) / blocks.shape[1] * 1e3:.1f} vs "
+              f"{(t2 - t1) / blocks.shape[1] * 1e3:.1f} ms/block", flush=True)
 
 
 def profile_main_path(blocks, dev, rx_stream, session_state) -> None:

@@ -4,7 +4,10 @@ The system has no weights: what carries over is the per-channel session
 state.  The flat keys are those ``m17_sdr_tpu.app.checkpoint.save_state``
 writes for an ``RxSessionState`` ("frontend/disc_tail",
 "receiver/index", ..., "last_fn"), so a JAX checkpoint loads into the
-port.  ``last_fn`` is uint32 in the JAX package and int64 here.
+port.  ``last_fn`` is uint32 in the JAX package and int64 here.  A TX
+modulator's ``ModState`` ("filter_tail" [B, 30] and "phase" [B], both
+float32 in both packages) carries over the same way, so a transmission
+started in one package goes on in the other.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 
 from .dsp.discriminator import RxFrontEndState
 from .dsp.equalize import EqState
+from .dsp.modulate import ModState
 from .frame.receiver import ReceiverState
 from .pipeline.rx import RxSessionState
 
@@ -75,3 +79,17 @@ def state_from_numpy(flat: dict[str, np.ndarray], device) -> RxSessionState:
         else:
             fields[name] = group(**{f: tensor(f"{name}/{f}") for f in group._fields})
     return RxSessionState(**fields)
+
+
+def mod_state_to_numpy(state: ModState) -> dict[str, np.ndarray]:
+    """A port ModState -> {"filter_tail": [B, 30] f32, "phase": [B] f32}."""
+    return {f: getattr(state, f).detach().cpu().numpy() for f in ModState._fields}
+
+
+def mod_state_from_numpy(flat: dict[str, np.ndarray], device) -> ModState:
+    """{"filter_tail", "phase"} arrays (a JAX ModState's fields) -> a port
+    ModState on ``device``."""
+    if set(flat) != set(ModState._fields):
+        raise ValueError(f"ModState fields {sorted(flat)} != {sorted(ModState._fields)}")
+    return ModState(**{f: torch.as_tensor(np.array(flat[f], dtype=np.float32)).to(device)
+                       for f in ModState._fields})

@@ -1,4 +1,4 @@
-"""Receive-side filter design (numpy, built once at import).
+"""Filter design (numpy, built once on the host).
 
 The closed forms are those of ``m17_sdr_tpu.dsp.filters``, including the
 +0.0001 rolloff nudge that keeps the RRC denominator off its zero.
@@ -26,6 +26,11 @@ def rrc_filter(rolloff: float, ntaps: int, samples_per_symbol: float) -> np.ndar
     return (a * (num_cos + num_sin) / den).astype(np.float32)
 
 
+def normalize_gain(h: np.ndarray, gain: float = 1.0) -> np.ndarray:
+    """Scale so that the tap sum equals ``gain``."""
+    return (h * (gain / h.sum())).astype(np.float32)
+
+
 def polyphase_rrc_bank(num_phases: int, taps_per_phase: int, rolloff: float = 0.5):
     """Matched-filter bank and circular-difference bank for timing recovery.
 
@@ -47,3 +52,19 @@ def polyphase_rrc_bank(num_phases: int, taps_per_phase: int, rolloff: float = 0.
         dmf[i] = diff[i::num_phases][:taps_per_phase]
     mf = mf / mf.sum(axis=1, keepdims=True)
     return mf, dmf
+
+
+def tx_rrc_polyphase(oversample: int, taps_per_phase: int = 31,
+                     rolloff: float = 0.5) -> np.ndarray:
+    """TX interpolation filter as a [taps_per_phase, oversample] matrix.
+
+    C[j, i] = c[(os-1-i) + j*os], c the mother RRC of taps_per_phase*os
+    taps at ``oversample`` samples/symbol with tap sum ``oversample``
+    (unit DC gain per branch).  The output for symbol step t, sub-sample
+    i is  y[t*os + i] = sum_j x[t-30+j] * C[j, i].
+    """
+    n = taps_per_phase * oversample
+    c = normalize_gain(rrc_filter(rolloff, n, oversample), float(oversample))
+    idx = (oversample - 1 - np.arange(oversample))[None, :] + \
+        np.arange(taps_per_phase)[:, None] * oversample
+    return c[idx].astype(np.float32)

@@ -6,7 +6,21 @@ functions take the same layout.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def from_complex(x, device) -> torch.Tensor:
+    """numpy complex [..., T] -> float32 [..., 2, T] on ``device``."""
+    x = np.asarray(x)
+    return torch.as_tensor(
+        np.stack([np.real(x), np.imag(x)], axis=-2).astype(np.float32)).to(device)
+
+
+def to_complex(x: torch.Tensor) -> np.ndarray:
+    """[..., 2, T] -> numpy complex64 [..., T] on the host."""
+    x = x.detach().cpu().numpy()
+    return (x[..., 0, :] + 1j * x[..., 1, :]).astype(np.complex64)
 
 
 def make(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
@@ -36,3 +50,8 @@ def rotate(x: torch.Tensor, cos_ph: torch.Tensor, sin_ph: torch.Tensor) -> torch
         re(x) * cos_ph - im(x) * sin_ph,
         re(x) * sin_ph + im(x) * cos_ph,
     )
+
+
+def from_phase(phase: torch.Tensor) -> torch.Tensor:
+    """exp(j*phase) as planar IQ [..., 2, T] from phase [..., T]."""
+    return make(torch.cos(phase), torch.sin(phase))

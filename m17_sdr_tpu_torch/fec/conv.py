@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .._util import on_device
+from ..spec import bits as bitpack
 
 NUM_STATES = 16
 TAIL_BITS = 4
@@ -75,3 +76,8 @@ def conv_encode_bits(bits: torch.Tensor) -> torch.Tensor:
     appending the 4-bit zero tail."""
     m = on_device(_encode_matrix(bits.shape[-1]), bits.device)
     return ((bits.to(torch.float32) @ m).to(torch.int64) % 2).to(torch.uint8)
+
+
+def conv_encode_bytes(data: torch.Tensor) -> torch.Tensor:
+    """Encode [..., N] bytes (MSB first) -> [..., 2*(8N+4)] coded bits."""
+    return conv_encode_bits(bitpack.bytes_to_bits(data))

@@ -1,1 +1,1 @@
-"""M17 protocol layer: constants and batched bit transforms (receive side)."""
+"""M17 protocol layer: constants, codecs and batched bit transforms."""

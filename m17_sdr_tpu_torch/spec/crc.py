@@ -58,3 +58,9 @@ def crc16_fixed(data: torch.Tensor) -> torch.Tensor:
     crc_bits = crc_bits ^ on_device(c, dev)
     shifts = torch.arange(15, -1, -1, device=dev)
     return (crc_bits << shifts).sum(dim=-1)
+
+
+def crc16_append(data: torch.Tensor) -> torch.Tensor:
+    """Append the big-endian CRC to [..., N] uint8 messages -> [..., N+2]."""
+    crc = crc16_fixed(data)
+    return torch.cat([data, bits.word_to_bytes_device(crc, 2)], dim=-1)

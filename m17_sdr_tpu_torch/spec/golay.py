@@ -1,5 +1,7 @@
-"""Golay(24,12) decoder for the LICH: syndrome by GF(2) product, then
-one lookup in a 4096-entry syndrome table of (error count, data error).
+"""Golay(24,12) for the LICH.  The encoder appends the parity of a GF(2)
+product; the decoder takes the syndrome by the same product, then one
+lookup in a 4096-entry syndrome table of (error count, data error).
+The products are float32 matmuls of 0/1 values, exact (sums <= 12).
 
 The table holds every error pattern of weight <= 3; any other syndrome
 reads as 4 errors, uncorrected (as ``m17_sdr_tpu.spec.golay``).
@@ -51,18 +53,28 @@ def _build_syndrome_table() -> np.ndarray:
 SYNDROME_TABLE = _build_syndrome_table()
 
 
+def _parity(data: torch.Tensor) -> torch.Tensor:
+    """[...] int64 12-bit data -> [...] int64 12-bit parity."""
+    dev = data.device
+    shifts = torch.arange(11, -1, -1, device=dev)
+    dbits = ((data[..., None] >> shifts) & 1).to(torch.float32)
+    pbits = (dbits @ on_device(_P, dev)).to(torch.int64) % 2
+    return (pbits << shifts).sum(dim=-1)
+
+
+def golay_encode(data: torch.Tensor) -> torch.Tensor:
+    """[...] 12-bit data words -> [...] int64 24-bit codewords."""
+    data = data.to(torch.int64)
+    return (data << 12) | _parity(data)
+
+
 def golay_decode(word: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[...] 24-bit words -> (data [...] int64 12-bit, nerrors [...] int32).
 
     nerrors == 4 means uncorrectable.
     """
-    dev = word.device
     word = word.to(torch.int64)
     data = (word >> 12) & 0xFFF
-    parity = word & 0xFFF
-    shifts = torch.arange(11, -1, -1, device=dev)
-    dbits = ((data[..., None] >> shifts) & 1).to(torch.float32)
-    pbits = (dbits @ on_device(_P, dev)).to(torch.int64) % 2
-    syndrome = parity ^ (pbits << shifts).sum(dim=-1)
-    entry = on_device(SYNDROME_TABLE, dev)[syndrome]
+    syndrome = (word & 0xFFF) ^ _parity(data)
+    entry = on_device(SYNDROME_TABLE, word.device)[syndrome]
     return data ^ (entry & 0xFFF), (entry >> 12).to(torch.int32)

@@ -1,4 +1,7 @@
-"""M17 de-puncturing (P1/P2/P3): re-insert 0.0 soft-bit erasures."""
+"""M17 puncturing (P1/P2/P3) as static gathers, and de-puncturing, which
+re-inserts 0.0 soft-bit erasures.  The mask is tiled over the coded
+length and cut, so a length that is not a multiple of the period (the
+BERT frame's 402 bits under P2) keeps the mask's leading part."""
 
 from __future__ import annotations
 
@@ -27,6 +30,15 @@ def _indices(scheme: str, coded_len: int) -> np.ndarray:
     mask = _SCHEMES[scheme]
     full = np.tile(mask, coded_len // len(mask) + 1)[:coded_len]
     return np.nonzero(full)[0].astype(np.int64)
+
+
+def punctured_len(scheme: str, coded_len: int) -> int:
+    return int(_indices(scheme, coded_len).shape[0])
+
+
+def puncture(x: torch.Tensor, scheme: str) -> torch.Tensor:
+    """Drop the masked bits of [..., coded_len] (hard or soft bits)."""
+    return x[..., on_device(_indices(scheme, x.shape[-1]), x.device)]
 
 
 def depuncture(x: torch.Tensor, scheme: str, coded_len: int) -> torch.Tensor:

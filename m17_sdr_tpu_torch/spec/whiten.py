@@ -1,5 +1,5 @@
-"""M17 de-correlator: sign-flip soft bits where the 368-bit whitening
-sequence has a 1."""
+"""M17 de-correlator on 368 bits: hard bits are XORed with the whitening
+sequence, soft bits sign-flipped where it has a 1."""
 
 from __future__ import annotations
 
@@ -19,6 +19,11 @@ WHITEN_BYTES = np.array(
 
 WHITEN_BITS = np.unpackbits(WHITEN_BYTES).astype(np.uint8)          # [368]
 WHITEN_SIGNS = np.where(WHITEN_BITS == 1, -1.0, 1.0).astype(np.float32)
+
+
+def whiten_bits(x: torch.Tensor) -> torch.Tensor:
+    """XOR hard bits [..., 368] with the whitening sequence (its own inverse)."""
+    return x ^ on_device(WHITEN_BITS, x.device).to(x.dtype)
 
 
 def whiten_soft(x: torch.Tensor) -> torch.Tensor:

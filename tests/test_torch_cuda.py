@@ -186,3 +186,60 @@ def test_receiver_scan_kernel_block_shapes(cuda, b, s2):   # noqa: F811
         assert torch.equal(st_k.window, st_r.window), blk
         for f in tr.ReceiverState._fields:
             assert torch.equal(getattr(st_k, f), getattr(st_r, f)), (f, blk)
+
+
+def test_tx_on_the_card_matches_the_cpu(cuda):   # noqa: F811
+    """The TX slice on the card against the same calls on the CPU: session
+    dibits equal; IQ and phase to 6e-4, the bench mix within 20 LSB of
+    3e-5.  The f32 phase reaches ~500 rad, where an ulp is 6.1e-5, and the
+    card's cumsum adds in another order than the CPU's: up to 4 ulps
+    apart on these sessions, 10 allowed."""
+    from m17_sdr_tpu_torch.pipeline import benchdata
+    from m17_sdr_tpu_torch.pipeline import tx as txp
+
+    lsf, pay = benchdata.bench_sessions("cpu")
+    data = torch.randint(0, 256, (64, 60), generator=torch.Generator().manual_seed(0),
+                         dtype=torch.uint8)
+    for name, build in (
+            ("voice", lambda d: txp.build_voice_session_dibits(lsf.to(d), pay.to(d))),
+            ("packet", lambda d: txp.build_packet_session_dibits(lsf.to(d), data.to(d))),
+            ("bert", lambda d: txp.build_bert_session_dibits(64, 6, device=d))):
+        dib_c, dib_g = build("cpu"), build(cuda)
+        assert torch.equal(dib_g.cpu(), dib_c), name
+        iq_c, st_c = txp.dibits_to_iq(dib_c)
+        iq_g, st_g = txp.dibits_to_iq(dib_g)
+        torch.testing.assert_close(iq_g.cpu(), iq_c, rtol=0, atol=6e-4)
+        torch.testing.assert_close(st_g.phase.cpu(), st_c.phase, rtol=0, atol=6e-4)
+    blk_c, nblk = benchdata.make_bench_blocks(128, device="cpu")
+    blk_g, _ = benchdata.make_bench_blocks(128, device=cuda)
+    diff = (torch.stack(blk_g, 1).cpu().to(torch.int32) - torch.stack(blk_c, 1).to(torch.int32))
+    assert nblk == 13 and int(diff.abs().max()) <= 20
+
+
+def test_loopbacks_kernel_path_match_plain(cuda):   # noqa: F811
+    """BERT and packet loopbacks on the kernels and on the plain versions
+    with the same noise: BER counts and reassembled packets equal."""
+    from m17_sdr_tpu_torch.pipeline import loopback as lb
+    from m17_sdr_tpu_torch.pipeline.benchdata import bench_sessions
+
+    b = 33
+    snr = torch.linspace(10.0, 30.0, b, device=cuda)
+    noise = torch.randn((b, 2, 10 * 192 * 8), generator=torch.Generator(cuda).manual_seed(1),
+                        device=cuda)
+    before = [k.launches for k in _build.KERNELS]
+    res_k = lb.bert_loopback(b, 4, snr_db=snr, noise=noise, device=cuda)
+    assert all(k.launches > n for k, n in zip(_build.KERNELS, before))
+    res_r = lb.bert_loopback(b, 4, snr_db=snr, noise=noise, device=cuda, use_kernel=False)
+    for a, r in zip(res_k, res_r):
+        assert torch.equal(a, r)
+    assert int(res_k[1].sum()) > 0
+
+    lsf = bench_sessions(cuda)[0][:1].expand(b, -1)
+    data = torch.randint(0, 256, (b, 30), generator=torch.Generator(cuda).manual_seed(2),
+                         device=cuda, dtype=torch.uint8)
+    gen = [torch.Generator(cuda).manual_seed(3) for _ in range(2)]
+    out_k, _ = lb.packet_loopback(lsf, data, snr_db=snr, generator=gen[0])
+    out_r, _ = lb.packet_loopback(lsf, data, snr_db=snr, generator=gen[1], use_kernel=False)
+    got = lb.reassemble_packets(out_k)
+    assert got == lb.reassemble_packets(out_r)
+    assert got[-1] == bytes(data[-1].cpu().tolist())
