@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's receive and transmit paths on one CUDA card and
-check them.
+"""Drive the PyTorch port on one CUDA card -- its kernels, receive and transmit
+paths and application layer -- and check them.
 
     python3 chip_smoke.py
 
@@ -40,8 +40,43 @@ Needs one CUDA card; exits non-zero without one.  Phases, each printed:
    curve, no bit errors at 19.2 and 20 dB; wall time and ms/block; then a BERT
    and a packet session at B=256 through ``rx_stream`` on the kernels and
    on the plain versions: every output field and the final state equal;
-9. a ``kernels`` summary, then one JSON line with each kernel's launches
-   (summed over the paths of phases 4 and 6-8, each counted from 0 just
+9. the app's streaming receiver, ``StreamingRx`` at 48 kHz and B=4096:
+   the staggered mix of phase 3 as host int16 wire blocks [B, 1920, 2]
+   through ``run()`` (the native ring, the producer thread, pinned
+   uploads on their own stream; 13 blocks, so one 8+4+1 tail): every
+   output field and the final state equal to phase 4's ``rx_stream`` on
+   the card, through the ring and fed directly; the unrotated fixture mix
+   the same way, equal to the JAX record on all channels; then the timing:
+   the staggered mix repeated to 100 blocks (4 whole 25-block chunks),
+   equal to ``rx_stream`` of the same blocks, and after that warm session,
+   sessions of 50 and 100 blocks through the ring and fed directly in
+   alternating order: ms/block and channel-samples/s over the whole
+   session and in the steady chunks (the 100- minus the 50-block
+   session), uploads included, beside ``rx_stream`` fed from the card;
+10. the Pluto-rate path: the 8 fixture sessions built on the card by the
+   port's TX at 384 kHz (oversample 80), tiled and staggered to B=1024,
+   through ``StreamingRx(input_rate=384000, chunk_blocks=5)`` as host
+   wire blocks [B, 15360, 2]: every routed payload is the one sent at its
+   FN, the unrotated channels route all 8, every recovered LSF reads
+   AB1CDE <- G4GUO; the x8 decimator on one block against a float64
+   numpy FIR, within DEC_REL of the output's peak, and its time on that
+   block against its bound; wall time per block on the first and on a
+   second session;
+11. checkpoint split-resume on the card: phase 9's staggered capture run
+   for SPLIT_BLOCKS blocks, checkpointed, resumed by a new StreamingRx:
+   bit-identical to phase 9's unbroken run;
+12. the CLI as a user runs it, in subprocesses on the card: ``tx`` of two
+   captures, ``rx`` of both as one batch (payloads equal to those sent,
+   the callsigns given, 0 Golay errors, ``--save-state``), and ``bert
+   --channels 4096 --frames 25 --snr 25`` (BER 0.0); each subprocess
+   reports its kernel launches at exit;
+13. live receive over UDP: ``Session.rx_live`` on a free loopback port
+   the kernel picks, fed by a ``tx --udp-out ... --pace`` sender
+   subprocess started once the port is bound: every payload routed,
+   decoded while the sender was still sending; the median turnaround of
+   its 5-block chunks at B=1;
+14. a ``kernels`` summary, then one JSON line with each kernel's launches
+   (summed over the paths of phases 4 and 6-13, each counted from 0 just
    before it), error, times and bound, then the last line
    ``{"ok": true, "device": ...}``.
 
@@ -87,6 +122,24 @@ PLAIN_PACKET_BYTES = 100
 FIXTURE_NOISY = slice(4, 8)
 FIXTURE_CARRIER_HZ = 300.0
 FIXTURE_SIGMA = 0.02
+PLUTO_B = 1024           # channels of the 384 kHz leg
+PLUTO_FACTOR = 8
+DEC_REL = 1e-5           # decimator vs float64, relative to the output's peak
+SPLIT_BLOCKS = 6         # phase 11 checkpoints after this many blocks
+STREAM_BLOCKS = (50, 100)   # phase 9's timed sessions: 2 and 4 whole 25-block chunks
+STREAM_REPS = 3          # timed sessions of each length and feed
+DEC_REPS = 20            # timed launches of the decimator on one Pluto block
+CLI_TIMEOUT_S = 300
+LIVE_FRAMES = 40         # frames of the live UDP session (45 blocks)
+LIVE_CHUNK = 5           # blocks a live chunk: 200 ms of signal
+CLI_MODULE = "m17_sdr_tpu_torch.app.main"
+# runs the CLI module as `python -m` does, then reports the kernels'
+# launch counts on stderr at exit
+CLI_WRAP = ("import atexit, json, runpy, sys\n"
+            "from m17_sdr_tpu_torch import _build\n"
+            "atexit.register(lambda: print('launches ' + json.dumps("
+            "{k.symbol: k.launches for k in _build.KERNELS}), file=sys.stderr))\n"
+            f"runpy.run_module('{CLI_MODULE}', run_name='__main__', alter_sys=True)\n")
 
 
 def fail(msg: str) -> None:
@@ -343,8 +396,13 @@ def main() -> int:
     tx_fixture(fx, dev, paths)
     bench_mix(dev, paths)
     sweep(dev, paths, card)
+    wire = streaming_48k(fx, blocks, out_k, st_k, dev, paths, card)
+    pluto(fx, dev, paths, card)
+    split_resume(wire, dev, paths)
+    cli(dev, paths, card)
+    live_udp(dev, paths, card)
 
-    # ---- phase 9: summary
+    # ---- phase 14: summary
     sources = {"viterbi": ("m17_sdr_tpu_torch/csrc/viterbi.cu",
                            "m17_sdr_tpu/fec/viterbi_pallas.py:58", _build.VITERBI),
                "receiver_scan": ("m17_sdr_tpu_torch/csrc/receiver_scan.cu",
@@ -539,6 +597,356 @@ def sweep(dev, paths: dict, card: str) -> None:
               f"versions ({int(valid.sum())} {name} frames decoded); "
               f"{(t1 - t0) / blocks.shape[1] * 1e3:.1f} vs "
               f"{(t2 - t1) / blocks.shape[1] * 1e3:.1f} ms/block", flush=True)
+
+
+def host_wire_blocks(blocks: torch.Tensor) -> list[np.ndarray]:
+    """[B, NBLK, 2, T] int16 on the card -> NBLK host wire blocks [B, T, 2]."""
+    wire = blocks.transpose(-1, -2).contiguous().cpu().numpy()
+    return [np.ascontiguousarray(wire[:, i]) for i in range(wire.shape[1])]
+
+
+def stream_blocks(wire: list[np.ndarray], dev, use_ring: bool = True, **kw):
+    """One StreamingRx session over host wire blocks through run() (by
+    default through the ring and the producer thread): (out, state,
+    n_blocks, wall s)."""
+    from m17_sdr_tpu_torch.app.streaming import StreamingRx
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srx = StreamingRx(batch=wire[0].shape[0], device=dev, **kw)
+    srx.run(iter(wire), use_ring=use_ring)
+    out, state, n = srx.finish()
+    return out, state, n, time.perf_counter() - t0
+
+
+def compare_host(what: str, out, state, out_ref, st_ref) -> None:
+    """A host StreamingRx result against a device one: every field equal."""
+    from m17_sdr_tpu_torch.convert import state_to_numpy
+
+    for name in out_ref._fields:
+        a, b = getattr(out, name), getattr(out_ref, name).cpu().numpy()
+        if a.shape != b.shape or not np.array_equal(a, b):
+            fail(f"{what}: {name} differs")
+    want = state_to_numpy(st_ref)
+    for k, v in state_to_numpy(state).items():
+        if not np.array_equal(v, want[k]):
+            fail(f"{what} final state: {k} differs")
+
+
+def streaming_48k(fx, blocks, out_ref, st_ref, dev, paths: dict, card: str):
+    """Phase 9: StreamingRx at B=4096 over host wire blocks; returns them."""
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.pipeline.rx import RxSessionState, rx_stream
+
+    wire = host_wire_blocks(blocks)
+    reset_launches(_build.KERNELS)
+    out, state, n, _ = stream_blocks(wire, dev, afc=True, equalize="auto")
+    got = read_launches("streaming 48k", _build.KERNELS, paths)
+    if n != NBLK:
+        fail(f"StreamingRx 48k: {n} blocks, not {NBLK}")
+    compare_host("StreamingRx 48k vs rx_stream", out, state, out_ref, st_ref)
+    tiled = np.tile(fx["iq"].transpose(0, 2, 1), (B // fx["iq"].shape[0], 1, 1))
+    rec_wire = [np.ascontiguousarray(tiled[:, i * T:(i + 1) * T]) for i in range(NBLK)]
+    out, _, _, _ = stream_blocks(rec_wire, dev, afc=True, equalize="auto")
+    sess = np.arange(B) % fx["iq"].shape[0]
+    recorded = [k for k in fx if k not in ("iq", "payloads")]
+    for name in recorded:
+        if not np.array_equal(getattr(out, name).astype(np.int64),
+                              fx[name].astype(np.int64)[sess]):
+            fail(f"StreamingRx 48k vs the JAX record: {name} differs")
+    out, state, _, _ = stream_blocks(wire, dev, use_ring=False, afc=True, equalize="auto")
+    compare_host("StreamingRx 48k without the ring vs rx_stream", out, state, out_ref, st_ref)
+    print(f"phase 9 StreamingRx 48 kHz, B={B}, {NBLK} blocks (one 8+4+1 tail): every output "
+          f"field and the final state equal to rx_stream on the card, through the ring and "
+          f"fed directly; on the unrotated fixture mix {', '.join(recorded)} equal to the JAX "
+          f"record on all {B} channels; launches {got}", flush=True)
+
+    # timing: the staggered mix repeated into sessions of whole 25-block
+    # chunks, after a warm session of the same input; ring and direct feed
+    # alternate, so order and input are the same for both
+    n_long = max(STREAM_BLOCKS)
+    long = [wire[i % NBLK] for i in range(n_long)]
+    long_dev = blocks[:, torch.arange(n_long, device=dev) % NBLK]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_l, st_l = rx_stream(long_dev, RxSessionState.init(B, dev), afc_enabled=True,
+                            equalize="auto")
+    torch.cuda.synchronize()
+    dev_fed = (time.perf_counter() - t0) / n_long
+    del long_dev
+    out, state, _, warm = stream_blocks(long, dev, afc=True, equalize="auto")
+    compare_host(f"StreamingRx 48k, {n_long} blocks vs rx_stream", out, state, out_l, st_l)
+    del out, state, out_l, st_l
+    walls = {(ring, n): [] for ring in (True, False) for n in STREAM_BLOCKS}
+    lo, hi = STREAM_BLOCKS
+    order = [(True, hi), (False, hi), (True, lo), (False, lo)]
+    for rep in range(STREAM_REPS):
+        for ring, n in order if rep % 2 == 0 else order[::-1]:
+            walls[(ring, n)].append(stream_blocks(long[:n], dev, use_ring=ring, afc=True,
+                                                  equalize="auto")[3])
+    legs = []
+    for ring in (True, False):
+        w_lo, w_hi = (statistics.median(walls[(ring, n)]) for n in STREAM_BLOCKS)
+        steady = (w_hi - w_lo) / (hi - lo)
+        legs.append(f"{'ring' if ring else 'direct'}: {w_hi / hi * 1e3:.1f} ms/block over the "
+                    f"whole {hi}-block session ({B * T * hi / w_hi / 1e6:.1f} M "
+                    f"channel-samples/s), {steady * 1e3:.1f} ms/block steady ({B * T / steady / 1e6:.1f} "
+                    f"M channel-samples/s; {hi}- minus {lo}-block session, medians of "
+                    f"{STREAM_REPS}: "
+                    + ", ".join(f"{n}: " + "/".join(f"{w:.3f}" for w in walls[(ring, n)]) + " s"
+                                for n in STREAM_BLOCKS) + ")")
+    print(f"phase 9 StreamingRx 48 kHz timing, B={B}, the staggered mix repeated to {hi} blocks "
+          f"(4 whole 25-block chunks): equal to rx_stream of the same blocks; warm session "
+          f"{warm / hi * 1e3:.1f} ms/block; {'; '.join(legs)}; rx_stream fed from device "
+          f"memory {dev_fed * 1e3:.1f} ms/block; wall times include the uploads, the decode "
+          f"and finish()'s host read; {card}", flush=True)
+    return wire
+
+
+def fir_decimate_f64(x: np.ndarray, tail: np.ndarray, taps: np.ndarray) -> np.ndarray:
+    """The x8 decimating FIR in float64 numpy: y[m] = sum_k h[k] x[8m - k]."""
+    xx = np.concatenate([tail, x], axis=-1).astype(np.float64)
+    m, n = x.shape[-1] // PLUTO_FACTOR, len(taps)
+    return sum(float(taps[n - 1 - j]) * xx[..., j: j + PLUTO_FACTOR * (m - 1) + 1: PLUTO_FACTOR]
+               for j in range(n))
+
+
+def pluto(fx, dev, paths: dict, card: str) -> None:
+    """Phase 10: the fixture sessions at 384 kHz through StreamingRx."""
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.dsp import resample
+    from m17_sdr_tpu_torch.dsp.discriminator import scale_int16
+    from m17_sdr_tpu_torch.pipeline import tx as txp
+    from m17_sdr_tpu_torch.pipeline.benchdata import bench_sessions
+    from m17_sdr_tpu_torch.spec import callsign
+    from m17_sdr_tpu_torch.spec.bits import bytes_to_word_host
+
+    payloads = torch.as_tensor(fx["payloads"]).to(dev)              # [8, 8, 16]
+    n_sess, n_frames = payloads.shape[:2]
+    lsf = bench_sessions(dev)[0][:n_sess]
+    iq, _ = txp.dibits_to_iq(txp.build_voice_session_dibits(lsf, payloads),
+                             oversample=10 * PLUTO_FACTOR)          # [8, 2, 13*15360]
+    t_in = T * PLUTO_FACTOR
+    w = torch.round(iq * 0x3FFF).to(torch.int16)                    # the FileSink wire scale
+    w = w.reshape(n_sess, 2, NBLK, t_in).permute(0, 2, 3, 1)          # [8, NBLK, t_in, 2]
+    tiled = w.repeat(PLUTO_B // n_sess, 1, 1, 1)
+    offs = torch.arange(PLUTO_B, device=dev) % NBLK
+    idx = (torch.arange(NBLK, device=dev)[None, :] + offs[:, None]) % NBLK
+    tiled = torch.gather(tiled, 1, idx[:, :, None, None].expand(-1, -1, t_in, 2))
+    host = tiled.cpu().numpy()
+    wire = [np.ascontiguousarray(host[:, i]) for i in range(NBLK)]
+    del tiled, host
+
+    x = scale_int16(torch.as_tensor(wire[0]).to(dev))                # [B, 2, t_in]
+    zero = resample.decimate_init(PLUTO_B, dev)
+    taps = resample.pluto_dec_taps()
+    y, _ = resample.fir_decimate(x, taps, zero)
+    ref = fir_decimate_f64(x.cpu().numpy(), zero.cpu().numpy(), taps)
+    dec_err = float(np.abs(y.cpu().numpy() - ref).max())
+    if dec_err > DEC_REL * np.abs(ref).max():
+        fail(f"x8 decimator vs float64: max error {dec_err:.3g} over a peak of "
+             f"{np.abs(ref).max():.3g} (limit {DEC_REL} of it)")
+    dec_ms = cuda_ms(lambda: resample.fir_decimate(x, taps, zero), DEC_REPS)
+    # reads the block and the tail once, writes the output and the new tail
+    dec_bytes = x.nbytes + y.nbytes + 2 * zero.nbytes
+    dec_bound, dec_by = bound(dec_bytes, 2 * len(taps) * y.numel())
+
+    reset_launches(_build.KERNELS)
+    out, state, n, wall = stream_blocks(wire, dev, input_rate=48_000 * PLUTO_FACTOR,
+                                        chunk_blocks=5, equalize="auto")
+    got = read_launches("streaming 384k", _build.KERNELS, paths)
+    wall2 = stream_blocks(wire, dev, input_rate=48_000 * PLUTO_FACTOR, chunk_blocks=5,
+                          equalize="auto")[3]
+    sent = fx["payloads"][np.arange(PLUTO_B) % n_sess]              # [B, 8, 16]
+    gate = out.stream_gate.reshape(PLUTO_B, -1)
+    fn = out.stream_fn.reshape(PLUTO_B, -1)
+    pl = out.stream_payload.reshape(PLUTO_B, -1, 16)
+    c, j = np.nonzero(gate)
+    if (fn[c, j] >= n_frames).any() or (pl[c, j] != sent[c, np.minimum(fn[c, j], n_frames - 1)]
+                                        ).any():
+        fail("StreamingRx 384k: a routed payload is not the one sent at its FN")
+    whole = np.arange(PLUTO_B) % NBLK == 0
+    for ch in np.nonzero(whole)[0]:
+        if sorted(fn[ch][gate[ch]].tolist()) != list(range(n_frames)):
+            fail(f"StreamingRx 384k: unrotated channel {ch} routed FNs "
+                 f"{sorted(fn[ch][gate[ch]].tolist())}")
+    valid = state.lich_good_valid
+    calls = {(callsign.decode_callsign(int(bytes_to_word_host(row[0:6]))).strip(),
+              callsign.decode_callsign(int(bytes_to_word_host(row[6:12]))).strip())
+             for row in state.lich_good[valid]}
+    if calls != {("AB1CDE", "G4GUO")} or not valid[whole].all():
+        fail(f"StreamingRx 384k: LSF callsigns {calls} on {int(valid.sum())} channels")
+    print(f"phase 10 Pluto rate: {n_sess} sessions built by the port at 384 kHz, B={PLUTO_B} "
+          f"staggered, {n} blocks of [B, {t_in}, 2] int16 ({wire[0].nbytes / 1e6:.0f} MB a "
+          f"block) in 5-block chunks (2 whole and a 2+1 tail): {len(c)} routed payloads all "
+          f"as sent, the {int(whole.sum())} unrotated channels route all {n_frames}, LSF "
+          f"AB1CDE <- G4GUO on {int(valid.sum())} channels; decimator vs float64 max error "
+          f"{dec_err:.3g} (peak {np.abs(ref).max():.3f}); decimator on one block "
+          f"{dec_ms:.4f} ms (median of {DEC_REPS}), bound {dec_bound * 1e3:.2f} us ({dec_by}, "
+          f"{dec_bytes / 1e6:.1f} MB), share {dec_bound / dec_ms:.3f}; {wall / n * 1e3:.1f} "
+          f"ms/block wall on the first 384 kHz session, {wall2 / n * 1e3:.1f} on the second; "
+          f"launches {got}; {card}", flush=True)
+
+
+def split_resume(wire: list[np.ndarray], dev, paths: dict) -> None:
+    """Phase 11: checkpoint after SPLIT_BLOCKS blocks, resume, compare
+    with one unbroken run."""
+    import tempfile
+
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.app.streaming import StreamingRx
+    from m17_sdr_tpu_torch.convert import state_to_numpy
+
+    ref_out, ref_state, _, _ = stream_blocks(wire, dev, afc=True, equalize="auto")
+    reset_launches(_build.KERNELS)
+    with tempfile.TemporaryDirectory() as td:
+        ck = str(Path(td) / "state.npz")
+        first = StreamingRx(batch=B, afc=True, equalize="auto", device=dev)
+        for blk in wire[:SPLIT_BLOCKS]:
+            first.feed_block(blk)
+        first.checkpoint(ck)
+        out1, _, n1 = first.finish()
+        second = StreamingRx(batch=B, afc=True, equalize="auto", device=dev)
+        second.resume(ck)
+        for blk in wire[SPLIT_BLOCKS:]:
+            second.feed_block(blk)
+        out2, state2, n2 = second.finish()
+    got = read_launches("checkpoint resume", _build.KERNELS, paths)
+    for name in ref_out._fields:
+        joined = np.concatenate([getattr(out1, name), getattr(out2, name)], axis=1)
+        if not np.array_equal(joined, getattr(ref_out, name)):
+            fail(f"split-resume: {name} differs from the unbroken run")
+    want = state_to_numpy(ref_state)
+    for k, v in state_to_numpy(state2).items():
+        if not np.array_equal(v, want[k]):
+            fail(f"split-resume: final state {k} differs from the unbroken run")
+    print(f"phase 11 checkpoint split-resume: B={B}, {n1} + {n2} blocks across a checkpoint "
+          f"file, bit-identical to the unbroken run (every field and the final state); "
+          f"launches {got}", flush=True)
+
+
+def run_cli(*args: str) -> tuple[dict, dict]:
+    """(the last stdout JSON line, the kernel launches) of one CLI run."""
+    r = subprocess.run([sys.executable, "-c", CLI_WRAP, *args], capture_output=True,
+                       text=True, timeout=CLI_TIMEOUT_S,
+                       cwd=Path(__file__).resolve().parent)
+    if r.returncode != 0:
+        fail(f"CLI {' '.join(args[:1])} exited {r.returncode}: {r.stderr[-2000:]}")
+    launches = [ln for ln in r.stderr.splitlines() if ln.startswith("launches ")]
+    return json.loads(r.stdout.splitlines()[-1]), json.loads(launches[-1][9:])
+
+
+def record_cli(path: str, launches: dict, paths: dict) -> None:
+    for sym, n in launches.items():
+        if n == 0:
+            fail(f"{path} never launched {sym}")
+    paths[path] = launches
+
+
+def cli(dev, paths: dict, card: str) -> None:
+    """Phase 12: tx -> rx round trip and bert through the CLI."""
+    import tempfile
+
+    rng = np.random.default_rng(12)
+    with tempfile.TemporaryDirectory() as td:
+        d = Path(td)
+        sent, caps = [], []
+        t0 = time.perf_counter()
+        for i in range(2):
+            pay = rng.integers(0, 256, (8, 16), dtype=np.uint8).tobytes()
+            (d / f"p{i}.bin").write_bytes(pay)
+            cap = str(d / f"c{i}.iq")
+            stats, _ = run_cli("tx", "--out", cap, "--frames", "8", "--src", "G4GUO",
+                               "--dest", "AB1CDE", "--payload", str(d / f"p{i}.bin"))
+            if stats.get("frames") != 8:
+                fail(f"CLI tx: {stats}")
+            sent.append(pay)
+            caps.append(cap)
+        t_tx = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats, launches = run_cli("rx", "--in", caps[0], "--in", caps[1], "--payload-out",
+                                  str(d / "rx.bin"), "--save-state", str(d / "st.npz"))
+        t_rx = time.perf_counter() - t0
+        record_cli("cli rx", launches, paths)
+        for i, ch in enumerate(stats["channels"]):
+            got = (d / f"rx.bin.ch{i}").read_bytes()
+            if (got != sent[i] or ch["lsf"] != {"dst": "AB1CDE", "src": "G4GUO"}
+                    or ch["golay_errors"] != 0 or ch["payload_frames"] != 8):
+                fail(f"CLI rx channel {i}: {ch}, payloads {'equal' if got == sent[i] else 'differ'}")
+        with np.load(d / "st.npz") as z:
+            if "dec_tail" not in z.files:
+                fail("CLI rx --save-state: no dec_tail in the checkpoint")
+    t0 = time.perf_counter()
+    bert, launches = run_cli("bert", "--channels", str(B), "--frames", "25", "--snr", "25")
+    t_bert = time.perf_counter() - t0
+    record_cli("cli bert", launches, paths)
+    if bert["ber"] != 0.0 or bert["bits"] == 0:
+        fail(f"CLI bert: {bert}")
+    print(f"phase 12 CLI on the card: tx of 2 captures ({t_tx:.1f} s for both processes), "
+          f"rx of both as one batch: payloads as sent, AB1CDE <- G4GUO, 0 Golay errors "
+          f"({t_rx:.1f} s, launches {paths['cli rx']}); bert --channels {B} --frames 25 "
+          f"--snr 25: {bert['bits']} bits, {bert['errors']} errors, ber {bert['ber']} "
+          f"({t_bert:.1f} s, launches {paths['cli bert']}); wall times include each "
+          f"process's start; {card}", flush=True)
+
+
+def live_udp(dev, paths: dict, card: str) -> None:
+    """Phase 13: Session.rx_live fed by a tx --udp-out sender process."""
+    import tempfile
+
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.app.session import Session
+
+    rng = np.random.default_rng(13)
+    sent = rng.integers(0, 256, (LIVE_FRAMES, 16), dtype=np.uint8).tobytes()
+    nblk = LIVE_FRAMES + 5
+    with tempfile.TemporaryDirectory() as td:
+        d = Path(td)
+        (d / "p.bin").write_bytes(sent)
+        senders = []
+
+        def start_sender(port: int) -> None:
+            # rx_live listens on a free port the kernel picks and names it here
+            senders.append(subprocess.Popen(
+                [sys.executable, "-m", CLI_MODULE, "tx", "--out",
+                 str(d / "live.iq"), "--payload", str(d / "p.bin"), "--src", "G4GUO",
+                 "--dest", "AB1CDE", "--udp-out", f"127.0.0.1:{port}", "--pace"],
+                cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+
+        try:
+            events = []
+            sess = Session(device=str(dev))
+            reset_launches(_build.KERNELS)
+            stats = sess.rx_live(0, payload_out=str(d / "rx.bin"),
+                                 chunk_blocks=LIVE_CHUNK, idle_timeout_s=60.0,
+                                 max_blocks=nblk, on_listen=start_sender,
+                                 on_chunk=lambda s: events.append(
+                                     (s["turnaround_s"], senders[0].poll() is None)))
+            got = read_launches("live udp", _build.KERNELS, paths)
+            sender = senders[0]
+            out, err = sender.communicate(timeout=60)
+        finally:
+            for p in senders:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if sender.returncode != 0:
+            fail(f"tx --udp-out sender exited {sender.returncode}: {err[-2000:]}")
+        received = (d / "rx.bin").read_bytes()
+    if (stats["payload_frames"] != LIVE_FRAMES or received != sent
+            or stats["lsf"] != {"dst": "AB1CDE", "src": "G4GUO"} or stats["golay_errors"]):
+        fail(f"rx_live: {stats}, payloads {'as sent' if received == sent else 'differ'}")
+    mid = sum(alive for _, alive in events)
+    if not mid:
+        fail("rx_live decoded no chunk while the sender was sending")
+    turn = [t for t, _ in events]
+    print(f"phase 13 live UDP: rx_live on the card fed by a tx --udp-out --pace process: "
+          f"{stats['blocks']} blocks in {stats['chunks']} chunks of {LIVE_CHUNK}, all "
+          f"{LIVE_FRAMES} payloads routed as sent, {mid} chunks decoded while the sender "
+          f"was sending; chunk turnaround (upload, decode, host read) median "
+          f"{statistics.median(turn) * 1e3:.1f} ms, max {max(turn) * 1e3:.1f} ms, for "
+          f"{LIVE_CHUNK * 40} ms of signal a chunk at B=1; launches {got}; {card}", flush=True)
 
 
 def profile_main_path(blocks, dev, rx_stream, session_state) -> None:

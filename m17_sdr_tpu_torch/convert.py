@@ -4,8 +4,12 @@ The system has no weights: what carries over is the per-channel session
 state.  The flat keys are those ``m17_sdr_tpu.app.checkpoint.save_state``
 writes for an ``RxSessionState`` ("frontend/disc_tail",
 "receiver/index", ..., "last_fn"), so a JAX checkpoint loads into the
-port.  ``last_fn`` is uint32 in the JAX package and int64 here.  A TX
-modulator's ``ModState`` ("filter_tail" [B, 30] and "phase" [B], both
+port, and a port state saves in the JAX package's format.  ``last_fn``
+is uint32 in the JAX package and int64 here.  ``tree_to_numpy`` and
+``tree_from_numpy`` do this for any NamedTuple tree: a streaming
+session's ``StreamChunkState`` flattens to "rx/..." keys and
+"dec_tail", the decimator's history, as a JAX ``StreamingRx``
+checkpoint does.  A TX modulator's ``ModState`` ("filter_tail" [B, 30] and "phase" [B], both
 float32 in both packages) carries over the same way, so a transmission
 started in one package goes on in the other.
 """
@@ -15,38 +19,82 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .dsp.discriminator import RxFrontEndState
-from .dsp.equalize import EqState
 from .dsp.modulate import ModState
-from .frame.receiver import ReceiverState
 from .pipeline.rx import RxSessionState
 
-_GROUPS = {"frontend": RxFrontEndState, "receiver": ReceiverState, "eq": EqState}
+# the one leaf whose dtype differs: uint32 in the JAX package, int64 here
+_UINT32_LEAVES = ("last_fn",)
 
 
-def _keys() -> list[str]:
-    keys = []
-    for name in RxSessionState._fields:
-        group = _GROUPS.get(name)
-        if group is None:
-            keys.append(name)
+def tree_to_numpy(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """Flatten a NamedTuple tree of tensors (or of host arrays) to
+    {key: numpy array}.
+
+    Keys are the field names joined with "/", as the JAX package's
+    checkpoints name the leaves of its pytrees; dtypes are the JAX
+    package's.
+    """
+    flat = {}
+    for name, x in tree._asdict().items():
+        key = prefix + name
+        if isinstance(x, tuple):
+            flat.update(tree_to_numpy(x, key + "/"))
         else:
-            keys.extend(f"{name}/{field}" for field in group._fields)
+            arr = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+            flat[key] = arr.astype(np.uint32) if name in _UINT32_LEAVES else arr
+    return flat
+
+
+def tree_from_numpy(template, flat: dict[str, np.ndarray]):
+    """The tree of ``template``'s structure holding ``flat``'s arrays, each
+    leaf with the template leaf's dtype and device.  Raises ValueError on
+    missing or surplus keys and on a shape that differs."""
+    keys = _leaf_keys(template)
+    missing = set(keys) - set(flat)
+    surplus = set(flat) - set(keys)
+    if missing or surplus:
+        raise ValueError(f"checkpoint field mismatch: missing={sorted(missing)} "
+                         f"surplus={sorted(surplus)}")
+    return _fill(template, flat, "")
+
+
+def _leaf_keys(tree, prefix: str = "") -> list[str]:
+    keys = []
+    for name, x in tree._asdict().items():
+        if isinstance(x, tuple):
+            keys += _leaf_keys(x, prefix + name + "/")
+        else:
+            keys.append(prefix + name)
     return keys
+
+
+def _fill(template, flat, prefix):
+    fields = {}
+    for name, leaf in template._asdict().items():
+        key = prefix + name
+        if isinstance(leaf, tuple):
+            fields[name] = _fill(leaf, flat, key + "/")
+            continue
+        arr = np.asarray(flat[key])
+        if arr.shape != tuple(leaf.shape):
+            raise ValueError(f"checkpoint shape mismatch at {key}: "
+                             f"{arr.shape} vs {tuple(leaf.shape)}")
+        if leaf.dtype == torch.int64:
+            arr = arr.astype(np.int64)
+        fields[name] = torch.as_tensor(arr).to(device=leaf.device, dtype=leaf.dtype)
+    return type(template)(**fields)
+
+
+def _stored(flat: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """A JAX save_state file's leaves: without its format tag and extras."""
+    return {k: v for k, v in flat.items()
+            if k != "__format__" and not k.startswith("extra/")}
 
 
 def state_to_numpy(state: RxSessionState) -> dict[str, np.ndarray]:
     """Flatten a port state to {checkpoint key: numpy array}, dtypes as in
     the JAX package."""
-    flat = {}
-    for key in _keys():
-        parts = key.split("/")
-        x = getattr(state, parts[0])
-        if len(parts) == 2:
-            x = getattr(x, parts[1])
-        arr = x.detach().cpu().numpy()
-        flat[key] = arr.astype(np.uint32) if key == "last_fn" else arr
-    return flat
+    return tree_to_numpy(state)
 
 
 def state_from_numpy(flat: dict[str, np.ndarray], device) -> RxSessionState:
@@ -56,29 +104,9 @@ def state_from_numpy(flat: dict[str, np.ndarray], device) -> RxSessionState:
     ``RxSessionState`` (its format tag and ``extra/`` entries are
     ignored).  Raises on missing or surplus keys.
     """
-    stored = {k: v for k, v in flat.items()
-              if k != "__format__" and not k.startswith("extra/")}
-    keys = _keys()
-    missing = set(keys) - set(stored)
-    surplus = set(stored) - set(keys)
-    if missing or surplus:
-        raise ValueError(f"state field mismatch: missing={sorted(missing)} "
-                         f"surplus={sorted(surplus)}")
-
-    def tensor(key):
-        arr = np.asarray(stored[key])
-        if key == "last_fn":
-            arr = arr.astype(np.int64)
-        return torch.as_tensor(arr).to(device)
-
-    fields = {}
-    for name in RxSessionState._fields:
-        group = _GROUPS.get(name)
-        if group is None:
-            fields[name] = tensor(name)
-        else:
-            fields[name] = group(**{f: tensor(f"{name}/{f}") for f in group._fields})
-    return RxSessionState(**fields)
+    stored = _stored(flat)
+    batch = len(next(iter(stored.values()))) if stored else 0
+    return tree_from_numpy(RxSessionState.init(batch, device), stored)
 
 
 def mod_state_to_numpy(state: ModState) -> dict[str, np.ndarray]:

@@ -68,6 +68,12 @@ def nco_mix(iq2: torch.Tensor, phase0: torch.Tensor, delta: torch.Tensor):
     return mixed, end
 
 
+def scale_int16(wire: torch.Tensor) -> torch.Tensor:
+    """int16 interleaved IQ [..., T, 2] -> planar float32 [..., 2, T],
+    scaled by 3e-5 as ``rx_front_end`` scales int16 input."""
+    return (wire.to(torch.float32) * 3.0e-5).movedim(-1, -2)
+
+
 def rx_front_end(
     iq2: torch.Tensor,
     state: RxFrontEndState,

@@ -26,6 +26,23 @@ def rrc_filter(rolloff: float, ntaps: int, samples_per_symbol: float) -> np.ndar
     return (a * (num_cos + num_sin) / den).astype(np.float32)
 
 
+def lpf_filter(bw: float, ntaps: int) -> np.ndarray:
+    """Rectangular-window sinc low-pass; ``bw`` is the two-sided bandwidth
+    as a fraction of the sample rate."""
+    t = -(ntaps - 1) / 2.0 + np.arange(ntaps)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        h = np.where(
+            t == 0, 2.0 * bw, 2.0 * bw * np.sin(np.pi * t * bw) / (np.pi * t * bw)
+        )
+    return h.astype(np.float32)
+
+
+def raised_cosine_window(n: int) -> np.ndarray:
+    """Hann window of n points."""
+    k = -n / 2.0 + np.arange(n)
+    return (0.5 * (1.0 + np.cos(k * 2.0 * np.pi / n))).astype(np.float32)
+
+
 def normalize_gain(h: np.ndarray, gain: float = 1.0) -> np.ndarray:
     """Scale so that the tap sum equals ``gain``."""
     return (h * (gain / h.sum())).astype(np.float32)

@@ -87,20 +87,25 @@ def packet_loopback(lsf_bytes: torch.Tensor, data: torch.Tensor, snr_db=60.0,
     return rx_stream(_blockify(iq), state, use_kernel=use_kernel)
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def reassemble_packets(out) -> list[bytes | None]:
-    """Each channel's packet from its decoded packet frames, on the host.
+    """Each channel's packet from its decoded packet frames, on the host
+    (``out``'s fields are tensors or host arrays).
 
     Chunks join in arrival order; the EOF frame gives only its first
     ``fn`` bytes (the final-length field).  The trailing CRC-16 is
     checked over the whole packet and stripped; a channel with no EOF
     or a bad CRC gives None.
     """
-    pv = out.packet_valid.cpu().numpy()                 # [B, NBLK, F]
+    pv = _host(out.packet_valid)                        # [B, NBLK, F]
     b = pv.shape[0]
     flat_v = pv.reshape(b, -1)
-    flat_d = out.packet_data.cpu().numpy().reshape(b, flat_v.shape[1], -1)
-    flat_e = out.packet_eof.cpu().numpy().reshape(b, -1)
-    flat_f = out.packet_fn.cpu().numpy().reshape(b, -1)
+    flat_d = _host(out.packet_data).reshape(b, flat_v.shape[1], -1)
+    flat_e = _host(out.packet_eof).reshape(b, -1)
+    flat_f = _host(out.packet_fn).reshape(b, -1)
     results: list[bytes | None] = []
     for ch in range(b):
         buf = bytearray()

@@ -54,6 +54,14 @@ def word_to_bytes(word, nbytes: int) -> np.ndarray:
     return ((word[..., None] >> shifts) & np.uint64(0xFF)).astype(np.uint8)
 
 
+def bytes_to_word_host(x) -> np.ndarray:
+    """Big-endian combine of [..., N] bytes into an integer word, on the
+    host (numpy uint64): 48-bit addresses need more than 32 bits."""
+    x = np.asarray(x)
+    shifts = np.arange(x.shape[-1] - 1, -1, -1, dtype=np.uint64) * np.uint64(8)
+    return np.sum(x.astype(np.uint64) << shifts, axis=-1)
+
+
 def word_to_bytes_device(word: torch.Tensor, nbytes: int) -> torch.Tensor:
     """Big-endian split of [...] words up to 32 bits -> [..., nbytes] uint8."""
     shifts = _shifts(nbytes, word.device) * 8

@@ -92,3 +92,7 @@ PACKET_CHUNK_BYTES = 25
 BERT_BITS = 197               # PRBS9 bits per BERT frame -> 402 -> P2 -> 368
 
 BROADCAST_ADDRESS = 0xFFFF_FFFF_FFFF
+
+# network / reflector protocol
+NET_FRAME_BYTES = 54          # "M17 " voice datagram size
+NET_UDP_PORT = 17_000

@@ -243,3 +243,61 @@ def test_loopbacks_kernel_path_match_plain(cuda):   # noqa: F811
     got = lb.reassemble_packets(out_k)
     assert got == lb.reassemble_packets(out_r)
     assert got[-1] == bytes(data[-1].cpu().tolist())
+
+
+def _fir_decimate_f64(x: np.ndarray, tail: np.ndarray, taps: np.ndarray) -> np.ndarray:
+    """The x8 decimating FIR in float64 numpy: y[m] = sum_k h[k] x[8m - k]."""
+    xx = np.concatenate([tail, x], axis=-1).astype(np.float64)
+    m, n = x.shape[-1] // 8, len(taps)
+    return sum(float(taps[n - 1 - j]) * xx[..., j: j + 8 * (m - 1) + 1: 8] for j in range(n))
+
+
+def test_decimator_on_the_card_matches_float64(cuda):   # noqa: F811
+    """fir_decimate on the card against float64 at one Pluto block:
+    within 1e-5 of the output's peak (31 float32 products summed)."""
+    from m17_sdr_tpu_torch.dsp import resample
+
+    rng = np.random.default_rng(8)
+    x = (0.5 * rng.normal(size=(64, 2, 15360))).astype(np.float32)
+    tail = (0.5 * rng.normal(size=(64, 2, 30))).astype(np.float32)
+    y, new_tail = resample.fir_decimate(torch.as_tensor(x).to(cuda), resample.pluto_dec_taps(),
+                                        torch.as_tensor(tail).to(cuda))
+    ref = _fir_decimate_f64(x, tail, resample.pluto_dec_taps())
+    assert y.shape == (64, 2, 1920)
+    assert np.abs(y.cpu().numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert torch.equal(new_tail.cpu(), torch.as_tensor(x[..., -30:]))
+
+
+def test_streaming_rx_kernel_path_matches_plain(cuda):   # noqa: F811
+    """StreamingRx at B=64 (the fixture sessions tiled, host int16 wire
+    blocks through the ring and the pinned uploads, 5-block chunks) on
+    the kernels and on the plain versions, and rx_stream of the same
+    blocks: every output field and every state field equal."""
+    from m17_sdr_tpu_torch.app.streaming import StreamingRx
+
+    wire = np.tile(_fixture_iq(), (8, 1, 1)).transpose(0, 2, 1)        # [64, T, 2]
+    nblk = wire.shape[1] // 1920
+    blocks = [np.ascontiguousarray(wire[:, i * 1920:(i + 1) * 1920]) for i in range(nblk)]
+    res = {}
+    for leg, use_kernel in (("kernel", None), ("plain", False)):
+        before = [k.launches for k in _build.KERNELS]
+        srx = StreamingRx(batch=64, afc=True, equalize="auto", chunk_blocks=5, device=cuda,
+                          use_kernel=use_kernel)
+        srx.run(iter(blocks))
+        res[leg] = srx.finish()
+        launched = [k.launches > n for k, n in zip(_build.KERNELS, before)]
+        assert all(launched) if use_kernel is None else not any(launched)
+    (out_k, st_k, n_k), (out_r, st_r, n_r) = res["kernel"], res["plain"]
+    assert n_k == n_r == nblk
+    iq = torch.as_tensor(np.stack(blocks, axis=1)).to(cuda).transpose(-1, -2)
+    out_s, st_s = trx.rx_stream(iq, RxSessionState.init(64, cuda), afc_enabled=True,
+                                equalize="auto")
+    for name in out_k._fields:
+        np.testing.assert_array_equal(getattr(out_k, name), getattr(out_r, name), err_msg=name)
+        np.testing.assert_array_equal(getattr(out_k, name), getattr(out_s, name).cpu().numpy(),
+                                      err_msg=name)
+    assert int(out_k.stream_gate.sum()) == 64 * 8
+    flat_k, flat_r, flat_s = (state_to_numpy(st) for st in (st_k, st_r, st_s))
+    for k, v in flat_s.items():
+        np.testing.assert_array_equal(flat_k[k], v, err_msg=k)
+        np.testing.assert_array_equal(flat_r[k], v, err_msg=k)

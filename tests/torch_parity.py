@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import functools
+import socket
 
 import numpy as np
 import pytest
@@ -106,3 +107,29 @@ def _two_sessions() -> np.ndarray:
 def to_int16(iq: np.ndarray) -> np.ndarray:
     """The int16 wire format (inverse of the front end's 3e-5 scale)."""
     return np.clip(np.round(iq / 3.0e-5), -32768, 32767).astype(np.int16)
+
+
+class FakeReflector:
+    """A reflector stand-in on a free local UDP port the kernel picks:
+    poll() takes one datagram (or None) and send() answers whoever sent
+    the last one, as a reflector answers its clients."""
+
+    def __init__(self):
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.setblocking(False)
+        self.port = self.sock.getsockname()[1]
+        self.peer = None
+
+    def poll(self) -> bytes | None:
+        try:
+            data, self.peer = self.sock.recvfrom(65536)
+        except BlockingIOError:
+            return None
+        return data
+
+    def send(self, data: bytes) -> None:
+        self.sock.sendto(data, self.peer)
+
+    def close(self) -> None:
+        self.sock.close()
