@@ -67,16 +67,35 @@ Needs one CUDA card; exits non-zero without one.  Phases, each printed:
    bit-identical to phase 9's unbroken run;
 12. the CLI as a user runs it, in subprocesses on the card: ``tx`` of two
    captures, ``rx`` of both as one batch (payloads equal to those sent,
-   the callsigns given, 0 Golay errors, ``--save-state``), and ``bert
-   --channels 4096 --frames 25 --snr 25`` (BER 0.0); each subprocess
-   reports its kernel launches at exit;
+   the callsigns given, 0 Golay errors, ``--save-state``), ``bert
+   --channels 4096 --frames 25 --snr 25`` (BER 0.0) and ``sweep --pod``
+   (4 points, 256 channels, 8 frames, in a one-rank ``nccl`` world: the
+   JAX CLI's keys, totals equal to the points' sums, no bit error at
+   20 dB); each subprocess reports its kernel launches at exit;
 13. live receive over UDP: ``Session.rx_live`` on a free loopback port
    the kernel picks, fed by a ``tx --udp-out ... --pace`` sender
    subprocess started once the port is bound: every payload routed,
    decoded while the sender was still sending; the median turnaround of
    its 5-block chunks at B=1;
-14. a ``kernels`` summary, then one JSON line with each kernel's launches
-   (summed over the paths of phases 4 and 6-13, each counted from 0 just
+14. the mesh layer in a one-rank ``nccl`` world (the machine has one
+   card, and NCCL takes one rank a card): ``sharded_rx_stream`` over the
+   staggered mix at B=4096 equals ``rx_stream`` with the same arguments
+   field by field and its reduced metrics equal the local sums;
+   ``time_parallel_rx`` with 3 warm-up blocks equals ``rx_stream`` over 3
+   zero blocks and the mix with the first 3 dropped; ``overlap_save_conv``
+   is within FIR_TOL of a float64 FIR; ms/block of each beside phase 4's;
+15. the sharded BER sweep (``pod_bert_sweep``) of SWEEP_POD_r5.json in the
+   same world, noise keyed per channel: equal bit for bit to the unsharded
+   ``bert_sweep_counts`` with the same seed, totals equal to the sums,
+   every point within ``recovery_tolerance`` of the record, no bit error
+   at 19.2 and 20 dB; wall time;
+16. the dormant DSP on the card against the same functions on the CPU:
+   ``pll_disc`` on one B=4096 block of the mix (within PLL_REL of the
+   output's peak) and ``equalize_train`` at B=4096 over EQ_SYMBOLS
+   symbols (within EQ_TOL); each one's wall time and device launches
+   (plain torch loops: the launch count is their cost);
+17. a ``kernels`` summary, then one JSON line with each kernel's launches
+   (summed over the paths of phases 4, 6-15, each counted from 0 just
    before it), error, times and bound, then the last line
    ``{"ok": true, "device": ...}``.
 
@@ -132,6 +151,14 @@ DEC_REPS = 20            # timed launches of the decimator on one Pluto block
 CLI_TIMEOUT_S = 300
 LIVE_FRAMES = 40         # frames of the live UDP session (45 blocks)
 LIVE_CHUNK = 5           # blocks a live chunk: 200 ms of signal
+FIR_TOL = 1e-5           # overlap-save FIR vs float64 (tests/test_mesh.py's bound)
+FIR_SHAPE = (256, 8 * T)  # the overlap-save check's input
+WARMUP = 3               # time_parallel_rx warm-up blocks
+PLL_REL = 1e-4           # pll_disc card vs CPU, relative to the output's peak
+EQ_SYMBOLS = 192         # equalize_train's symbols (one frame)
+EQ_TOL = 1e-4            # equalize_train card vs CPU, symbols and taps (trained on known symbols)
+POD_CLI = ("--points", "4", "--channels", "256", "--frames", "8", "--snr-min", "8",
+           "--snr-step", "4")
 CLI_MODULE = "m17_sdr_tpu_torch.app.main"
 # runs the CLI module as `python -m` does, then reports the kernels'
 # launch counts on stderr at exit
@@ -401,8 +428,13 @@ def main() -> int:
     split_resume(wire, dev, paths)
     cli(dev, paths, card)
     live_udp(dev, paths, card)
+    from m17_sdr_tpu_torch.mesh import launch
+    with launch.process_group(dev):
+        mesh(blocks, legs["kernel"][2], dev, paths, card)
+        pod_sweep(dev, paths, card)
+    dormant_dsp(blocks, dev, card)
 
-    # ---- phase 14: summary
+    # ---- phase 17: summary
     sources = {"viterbi": ("m17_sdr_tpu_torch/csrc/viterbi.cu",
                            "m17_sdr_tpu/fec/viterbi_pallas.py:58", _build.VITERBI),
                "receiver_scan": ("m17_sdr_tpu_torch/csrc/receiver_scan.cu",
@@ -882,11 +914,26 @@ def cli(dev, paths: dict, card: str) -> None:
     record_cli("cli bert", launches, paths)
     if bert["ber"] != 0.0 or bert["bits"] == 0:
         fail(f"CLI bert: {bert}")
+    t0 = time.perf_counter()
+    pod, launches = run_cli("sweep", "--pod", *POD_CLI)
+    t_pod = time.perf_counter() - t0
+    record_cli("cli sweep --pod", launches, paths)
+    pts = pod.get("points", [])
+    sums = [sum(p[k] for p in pts) for k in ("bit_errors", "bits", "frames_recovered")]
+    if (set(pod) != {"mesh_devices", "channels", "totals_psum", "points"} or len(pts) != 4
+            or pod["mesh_devices"] != 1 or pod["channels"] != 256
+            or [pod["totals_psum"][i] for i in (0, 1, 3)] != sums
+            or pts[-1]["bit_errors"] or not pts[-1]["bits"]):
+        fail(f"CLI sweep --pod: {pod}")
     print(f"phase 12 CLI on the card: tx of 2 captures ({t_tx:.1f} s for both processes), "
           f"rx of both as one batch: payloads as sent, AB1CDE <- G4GUO, 0 Golay errors "
           f"({t_rx:.1f} s, launches {paths['cli rx']}); bert --channels {B} --frames 25 "
           f"--snr 25: {bert['bits']} bits, {bert['errors']} errors, ber {bert['ber']} "
-          f"({t_bert:.1f} s, launches {paths['cli bert']}); wall times include each "
+          f"({t_bert:.1f} s, launches {paths['cli bert']}); sweep --pod {' '.join(POD_CLI)} "
+          f"in a one-rank nccl world: totals {pod['totals_psum']} equal to the points' "
+          f"sums, frames recovered " + "/".join(str(p["frames_recovered"]) for p in pts)
+          + f" of {pts[0]['frames_sent']} a point, no bit error at {pts[-1]['snr_db']} dB "
+          f"({t_pod:.1f} s, launches {paths['cli sweep --pod']}); wall times include each "
           f"process's start; {card}", flush=True)
 
 
@@ -947,6 +994,172 @@ def live_udp(dev, paths: dict, card: str) -> None:
           f"was sending; chunk turnaround (upload, decode, host read) median "
           f"{statistics.median(turn) * 1e3:.1f} ms, max {max(turn) * 1e3:.1f} ms, for "
           f"{LIVE_CHUNK * 40} ms of signal a chunk at B=1; launches {got}; {card}", flush=True)
+
+
+def mesh(blocks, main_per_block: float, dev, paths: dict, card: str) -> None:
+    """Phase 14: the mesh layer in this process's one-rank nccl world."""
+    import torch.distributed as dist
+
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.mesh import halo, sharding
+    from m17_sdr_tpu_torch.pipeline.rx import RxSessionState, rx_stream
+
+    group = sharding.make_mesh().get_group("ch")
+    # NCCL sets its communicator up at the group's first collective: not timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist.all_reduce(torch.zeros(1, device=dev), group=group)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    out_r, st_r = rx_stream(blocks, RxSessionState.init(B, dev), afc_enabled=True)
+    reset_launches(_build.KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_s, st_s, metrics = sharding.sharded_rx_stream(group, afc_enabled=True)(
+        sharding.shard_channels(blocks, group),
+        sharding.shard_channels(RxSessionState.init(B, dev), group))
+    got_ch = read_launches("mesh channels", _build.KERNELS, paths)
+    t_ch = (time.perf_counter() - t0) / NBLK
+    compare_outputs("sharded_rx_stream vs rx_stream", out_s, st_s, out_r, st_r)
+    local = torch.stack([st_r.n_frames.sum().float(), st_r.golay_errors.sum().float(),
+                         out_r.locked[:, -1].float().sum()])
+    if not torch.equal(metrics, local):
+        fail(f"sharded_rx_stream metrics {metrics.tolist()} vs local sums {local.tolist()}")
+
+    zeros = torch.zeros_like(blocks[:, :WARMUP])
+    out_w, _ = rx_stream(torch.cat([zeros, blocks], dim=1), RxSessionState.init(B, dev),
+                         afc_enabled=True)
+    out_w = type(out_w)(*(x[:, WARMUP:] for x in out_w))
+    run = halo.time_parallel_rx(sharding.make_mesh(axis="time").get_group("time"),
+                                warmup_blocks=WARMUP, block=T, afc_enabled=True)
+    reset_launches(_build.KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_t = run(blocks)
+    got_t = read_launches("mesh time slabs", _build.KERNELS, paths)
+    t_time = (time.perf_counter() - t0) / (NBLK + WARMUP)
+    for name in out_w._fields:
+        a, b = getattr(out_t, name), getattr(out_w, name)
+        if not same(a, b):
+            fail("time_parallel_rx vs rx_stream: " + first_diff(name, a, b, True))
+
+    rng = np.random.default_rng(14)
+    x = rng.normal(size=FIR_SHAPE).astype(np.float32)
+    taps = rng.normal(size=31).astype(np.float32)
+    y = halo.overlap_save_conv(group, taps)(torch.as_tensor(x).to(dev)).cpu().numpy()
+    xp = np.pad(x, [(0, 0), (30, 0)]).astype(np.float64)
+    want = sum(xp[:, j:j + x.shape[1]] * float(taps[j]) for j in range(31))
+    fir_err = float(np.abs(y - want).max())
+    if fir_err > FIR_TOL * max(1.0, float(np.abs(want).max())):
+        fail(f"overlap_save_conv vs float64: max error {fir_err:.3g}")
+    print(f"phase 14 mesh, one-rank nccl world (NCCL set-up at the first collective "
+          f"{t_setup * 1e3:.0f} ms): sharded_rx_stream over the staggered mix at "
+          f"B={B} equals rx_stream field by field, metrics {metrics.tolist()} equal to the "
+          f"local sums, {t_ch * 1e3:.1f} ms/block (launches {got_ch}); time_parallel_rx with "
+          f"{WARMUP} warm-up blocks equals rx_stream over {WARMUP} zero blocks and the mix, "
+          f"{t_time * 1e3:.1f} ms a block run (launches {got_t}); overlap_save_conv "
+          f"{FIR_SHAPE} within {fir_err:.3g} of float64; phase 4 main path "
+          f"{main_per_block * 1e3:.1f} ms/block; {card}", flush=True)
+
+
+def pod_sweep(dev, paths: dict, card: str) -> None:
+    """Phase 15: the sharded BER sweep of the record in the one-rank world."""
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.mesh import sharding
+    from m17_sdr_tpu_torch.pipeline.ber_sweep import (
+        bert_sweep_counts, pod_bert_sweep, recovery_tolerance)
+
+    rec = json.loads((Path(__file__).resolve().parent / "SWEEP_POD_r5.json").read_text())
+    curve, cpp, nf = rec["curve"], rec["channels_per_point"], rec["frames_per_channel"]
+    snr = torch.as_tensor(np.repeat(np.float32([p["snr_db"] for p in curve]), cpp)).to(dev)
+    group = sharding.make_mesh().get_group("ch")
+    reset_launches(_build.KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    *counts, totals = pod_bert_sweep(group, snr, nf, seed=SWEEP_SEED)
+    got = read_launches("pod sweep", _build.KERNELS, paths)
+    wall = time.perf_counter() - t0
+    want = bert_sweep_counts(snr, nf, seed=SWEEP_SEED)
+    for name, a, b in zip(("errors", "bits", "unsynced", "frames"), counts, want):
+        if not torch.equal(a, b):
+            fail("pod sweep vs unsharded: " + first_diff(name, a, b, False))
+    if totals.tolist() != [int(x.sum()) for x in counts]:
+        fail(f"pod sweep totals {totals.tolist()} are not the sums")
+    err, bits, _, frames = (x.reshape(-1, cpp).sum(-1).cpu() for x in counts)
+    rows = []
+    for i, p in enumerate(curve):
+        rate = int(frames[i]) / (nf * cpp)
+        tol = recovery_tolerance(p["frame_recovery"], cpp)
+        rows.append(f"{p['snr_db']:.1f} {rate:.4f}")
+        if abs(rate - p["frame_recovery"]) > tol:
+            fail(f"pod sweep at {p['snr_db']:.1f} dB: frame recovery {rate:.4f} vs the "
+                 f"recorded {p['frame_recovery']:.4f} (tolerance {tol:.4f})")
+        if any(abs(p["snr_db"] - c) < 0.05 for c in SWEEP_CLEAN_DB) and int(err[i]):
+            fail(f"pod sweep at {p['snr_db']:.1f} dB: {int(err[i])} bit errors")
+    print(f"phase 15 pod sweep, one-rank nccl world: {len(curve)} points x {cpp} channels x "
+          f"{nf} frames, noise keyed per channel (seed {SWEEP_SEED}): equal bit for bit to the "
+          f"unsharded sweep, totals {totals.tolist()} equal to the sums, every point within "
+          f"tolerance of the record (dB, recovery: {'; '.join(rows)}), no bit error at "
+          f"{' and '.join(map(str, SWEEP_CLEAN_DB))} dB; {wall:.2f} s wall (keyed noise, TX, "
+          f"rx_stream, the count and the all_reduce); launches {got}; {card}", flush=True)
+
+
+def device_launches(fn) -> tuple[int, object]:
+    """(device kernels launched by fn(), its result), by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA), res
+
+
+def wall_ms(fn) -> tuple[float, object]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, res
+
+
+def dormant_dsp(blocks, dev, card: str) -> None:
+    """Phase 16: pll_disc and equalize_train on the card against the CPU."""
+    from m17_sdr_tpu_torch.dsp import equalize, pll
+
+    x = blocks[:, K2_BLOCK].float()                  # int16 scale, as the reference's
+    st = pll.PllState.init(B, dev)
+    pll_fn = lambda: pll.pll_disc(x, st)             # noqa: E731
+    pll_fn()
+    pll_ms, (out, dc, st_out) = wall_ms(pll_fn)
+    pll_n, _ = device_launches(pll_fn)
+    ref = pll.pll_disc(x.cpu(), pll.PllState.init(B, "cpu"))
+    peak = float(ref[0].abs().max())
+    pll_err = max(float((a.cpu() - b).abs().max()) for a, b in zip((out, dc), ref[:2]))
+    z_err = float((st_out.z.cpu() - ref[2].z).abs().max())
+    if pll_err > PLL_REL * peak or z_err > PLL_REL:
+        fail(f"pll_disc card vs CPU: max error {pll_err:.3g} (peak {peak:.3g}), z {z_err:.3g}")
+
+    rng = np.random.default_rng(16)
+    syms = rng.choice(np.float32([-1.0, -0.333, 0.333, 1.0]), size=(B, EQ_SYMBOLS))
+    rx = equalize.isi_channel(torch.as_tensor(np.repeat(syms, 2, axis=-1)), (1.0, 0.0, 0.35))
+    rx = rx + torch.as_tensor(0.05 * rng.normal(size=rx.shape).astype(np.float32))
+    known = torch.as_tensor(syms)
+    eq_fn = lambda: equalize.equalize_train(rx.to(dev), equalize.EqState.init(B, dev),  # noqa
+                                            known.to(dev))
+    eq_fn()
+    eq_ms, (y, est) = wall_ms(eq_fn)
+    eq_n, _ = device_launches(eq_fn)
+    y_ref, est_ref = equalize.equalize_train(rx, equalize.EqState.init(B, "cpu"), known)
+    eq_err = max(float((y.cpu() - y_ref).abs().max()), float((est.c.cpu() - est_ref.c).abs().max()))
+    if eq_err > EQ_TOL:
+        fail(f"equalize_train card vs CPU: max error {eq_err:.3g}")
+    mse = float(((y_ref[:, -64:] - known[:, -64:]) ** 2).mean())
+    print(f"phase 16 dormant DSP: pll_disc on one block at B={B} ({T} steps) within "
+          f"{pll_err:.3g} of the CPU (peak {peak:.3g}), z within {z_err:.3g}: {pll_ms:.1f} ms, "
+          f"{pll_n} device launches; equalize_train at B={B} over {EQ_SYMBOLS} symbols of an "
+          f"ISI channel within {eq_err:.3g} of the CPU (last-64 MSE {mse:.4f}): {eq_ms:.1f} ms, "
+          f"{eq_n} device launches; {card}", flush=True)
 
 
 def profile_main_path(blocks, dev, rx_stream, session_state) -> None:

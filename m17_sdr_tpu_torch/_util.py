@@ -1,6 +1,9 @@
-"""Device copies of module-level numpy tables, made once per device."""
+"""Device copies of module-level numpy tables, made once per device, and
+the float32 convolution context."""
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -22,3 +25,14 @@ def on_device(arr: np.ndarray, device, dtype: torch.dtype | None = None) -> torc
         hit = (arr, torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype).to(device))
         _CACHE[key] = hit
     return hit[1]
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuDNN without TF32 for the block, every other flag as it was: on
+    CUDA a float32 ``conv1d`` goes to cuDNN, which rounds its operands to
+    TF32 by default, while the JAX reference is float32."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        yield

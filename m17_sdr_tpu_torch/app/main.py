@@ -13,6 +13,8 @@ Examples:
   python -m m17_sdr_tpu_torch.app.main tx --out tx.iq --frames 20
   python -m m17_sdr_tpu_torch.app.main rx --in tx.iq
   python -m m17_sdr_tpu_torch.app.main bert --frames 50 --snr 20
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m m17_sdr_tpu_torch.app.main --device cpu sweep --pod --channels 64
   python -m m17_sdr_tpu_torch.app.main --device cpu repl -c config.txt
 """
 
@@ -225,16 +227,56 @@ def cmd_bert(args) -> int:
 def cmd_sweep(args) -> int:
     from ..pipeline import ber_sweep
 
-    if args.pod:
-        print("error: sweep --pod (the sweep sharded over several cards) is "
-              "not ported yet: ROADMAP.md Queue 1 item 12", file=sys.stderr)
-        return 2
     snrs = [args.snr_min + i * args.snr_step for i in range(args.points)]
+    if args.pod:
+        return _sweep_pod(args, snrs)
     points = ber_sweep.ber_sweep(
         snrs, channels_per_point=args.channels, n_frames=args.frames,
         freq_offset_hz=args.freq_offset, drift_ppm=args.drift_ppm,
         generator=_generator(args), device=args.device)
     print(json.dumps(ber_sweep.sweep_to_json(points)))
+    return 0
+
+
+def _sweep_pod(args, snrs: list[float]) -> int:
+    """The sweep sharded over a process group (BASELINE config 5 as one
+    program): TX, AWGN keyed per channel by --seed, RX and the error count
+    on each rank's channels, the counters summed across ranks.  Under
+    torchrun it takes the launched world, otherwise a one-rank world on
+    --device.  --channels is the total, rounded up so that every point has
+    the same width, a multiple of the world size.  Rank 0 prints."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ..mesh import launch, sharding
+    from ..pipeline import ber_sweep
+
+    with launch.process_group(args.device) as dev:
+        group = sharding.make_mesh().get_group("ch")
+        ndev = dist.get_world_size(group)
+        cpp = max(1, -(-args.channels // args.points))
+        cpp += (-cpp) % ndev
+        b = args.points * cpp
+        snr_vec = torch.as_tensor(np.repeat(np.asarray(snrs, np.float32), cpp)).to(dev)
+        *counters, totals = ber_sweep.pod_bert_sweep(group, snr_vec, args.frames, args.seed)
+        gathered = []
+        for x in counters:
+            parts = [torch.empty_like(x) for _ in range(ndev)]
+            dist.all_gather(parts, x, group=group)
+            gathered.append(torch.cat(parts).cpu().numpy().reshape(args.points, cpp))
+        if dist.get_rank(group) != 0:
+            return 0
+        err, bits, _, frames = gathered
+        out = []
+        for i, s in enumerate(snrs):
+            nb, ne = int(bits[i].sum()), int(err[i].sum())
+            out.append({"snr_db": s, "bits": nb, "bit_errors": ne,
+                        "ber": (ne / nb) if nb else None,
+                        "frames_recovered": int(frames[i].sum()),
+                        "frames_sent": args.frames * cpp})
+        print(json.dumps({"mesh_devices": ndev, "channels": b,
+                          "totals_psum": [int(x) for x in totals.cpu()], "points": out}))
     return 0
 
 
@@ -408,8 +450,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--drift-ppm", dest="drift_ppm", type=float, default=0.0)
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--pod", action="store_true",
-                   help="run the sweep sharded over several cards "
-                        "(not ported yet: exits 2)")
+                   help="shard the sweep over the ranks of a process group "
+                        "(under torchrun, its world; otherwise one rank); "
+                        "--channels is then the total")
     s.set_defaults(fn=cmd_sweep)
 
     i = sub.add_parser("repl", help="interactive MMI")

@@ -9,9 +9,11 @@ is uint32 in the JAX package and int64 here.  ``tree_to_numpy`` and
 ``tree_from_numpy`` do this for any NamedTuple tree: a streaming
 session's ``StreamChunkState`` flattens to "rx/..." keys and
 "dec_tail", the decimator's history, as a JAX ``StreamingRx``
-checkpoint does.  A TX modulator's ``ModState`` ("filter_tail" [B, 30] and "phase" [B], both
-float32 in both packages) carries over the same way, so a transmission
-started in one package goes on in the other.
+checkpoint does.  The flat float32 states -- a TX modulator's ``ModState`` ("filter_tail"
+[B, 30], "phase" [B]), the training equalizer's ``EqState`` and the PLL's
+``PllState`` -- carry over by their field names (``fields_to_numpy``,
+``fields_from_numpy``), so a transmission or an adaptation started in one
+package goes on in the other.
 """
 
 from __future__ import annotations
@@ -19,7 +21,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .dsp.modulate import ModState
 from .pipeline.rx import RxSessionState
 
 # the one leaf whose dtype differs: uint32 in the JAX package, int64 here
@@ -109,15 +110,17 @@ def state_from_numpy(flat: dict[str, np.ndarray], device) -> RxSessionState:
     return tree_from_numpy(RxSessionState.init(batch, device), stored)
 
 
-def mod_state_to_numpy(state: ModState) -> dict[str, np.ndarray]:
-    """A port ModState -> {"filter_tail": [B, 30] f32, "phase": [B] f32}."""
-    return {f: getattr(state, f).detach().cpu().numpy() for f in ModState._fields}
+def fields_to_numpy(state) -> dict[str, np.ndarray]:
+    """A port ``ModState``, ``EqState`` or ``PllState`` -> {field: float32
+    array}, the JAX state's fields and layout."""
+    return {f: getattr(state, f).detach().cpu().numpy() for f in state._fields}
 
 
-def mod_state_from_numpy(flat: dict[str, np.ndarray], device) -> ModState:
-    """{"filter_tail", "phase"} arrays (a JAX ModState's fields) -> a port
-    ModState on ``device``."""
-    if set(flat) != set(ModState._fields):
-        raise ValueError(f"ModState fields {sorted(flat)} != {sorted(ModState._fields)}")
-    return ModState(**{f: torch.as_tensor(np.array(flat[f], dtype=np.float32)).to(device)
-                       for f in ModState._fields})
+def fields_from_numpy(cls, flat: dict[str, np.ndarray], device):
+    """{field: array} (a JAX ``ModState``, ``EqState`` or ``PllState``'s
+    fields) -> the port's ``cls`` on ``device``.  Raises ValueError when
+    the fields differ."""
+    if set(flat) != set(cls._fields):
+        raise ValueError(f"{cls.__name__} fields {sorted(flat)} != {sorted(cls._fields)}")
+    return cls(**{f: torch.as_tensor(np.array(flat[f], dtype=np.float32)).to(device)
+                  for f in cls._fields})

@@ -4,14 +4,15 @@
 Port of ``m17_sdr_tpu.dsp.channel``.  The products are written in the
 JAX order, so that positions and phases round alike.  The noise
 functions draw from an explicit ``torch.Generator`` or take the noise
-as a tensor (to replay another package's draws); none draws from a
-global generator.
+as a tensor (to replay another package's draws, or ``keyed_noise``'s
+per-channel draws); none draws from a global generator.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..spec.constants import SAMPLE_RATE, SAMPLES_PER_SYMBOL
@@ -38,6 +39,22 @@ def _noise(shape, like: torch.Tensor, noise, generator) -> torch.Tensor:
     if tuple(noise.shape) != tuple(shape):
         raise ValueError(f"noise shape {tuple(noise.shape)} != {tuple(shape)}")
     return noise.to(like.device)
+
+
+def keyed_noise(shape, seed: int, first_channel: int, device) -> torch.Tensor:
+    """Unit-variance noise [B, ...] whose row c depends only on ``seed`` and
+    the global channel index ``first_channel + c``, as the JAX package keys
+    each channel: row c is drawn from its own generator, seeded with a hash
+    of (seed, channel) (numpy's ``SeedSequence``; the CPU generator keeps
+    its low 32 bits).  So any split of a batch over ranks draws the same
+    noise for each channel.  ``seed`` must be non-negative."""
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device)
+    for c in range(shape[0]):
+        key = np.random.SeedSequence([seed, first_channel + c]).generate_state(1, np.uint64)
+        gen.manual_seed(int(key[0]))
+        torch.randn(shape[1:], generator=gen, out=out[c])
+    return out
 
 
 def awgn(iq2: torch.Tensor, snr_db, noise: torch.Tensor | None = None,

@@ -7,7 +7,8 @@ gives exactly the output of the unsplit one.
 
 The filter is one strided ``conv1d``.  On CUDA that goes to cuDNN, which
 rounds float32 operands to TF32 by default; the call runs under a local
-``cudnn.flags(allow_tf32=False)``, since the JAX reference is float32.
+``cudnn.flags(allow_tf32=False)`` (``_util.no_tf32``), since the JAX
+reference is float32.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._util import no_tf32
 from .filters import lpf_filter, normalize_gain
 
 PLUTO_DECIMATION = 8          # 384 kS/s -> 48 kS/s
@@ -53,9 +55,7 @@ def fir_decimate(iq2: torch.Tensor, taps: np.ndarray, tail: torch.Tensor,
     # which is tap h[ntaps-1-j]
     w = torch.as_tensor(np.ascontiguousarray(taps[::-1]), dtype=torch.float32,
                         device=x.device).view(1, 1, -1)
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
+    with no_tf32():
         y = F.conv1d(x.reshape(-1, 1, x.shape[-1]), w, stride=factor)
     return y.view(*x.shape[:-1], t // factor), x[..., t:]
 

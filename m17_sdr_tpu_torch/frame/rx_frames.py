@@ -117,3 +117,10 @@ def decode_bert(soft368: torch.Tensor, use_kernel: bool | None = None) -> BertDe
     full402 = puncture.depuncture(F.pad(de, (0, 1)), "p2", 402)
     decoded, metric = viterbi_decode(F.pad(full402, (0, 8)), use_kernel=use_kernel)
     return BertDecode(bits=decoded[..., :197], metric=metric)
+
+
+def parse_lsf_fields(lsf_bytes: torch.Tensor):
+    """Split [B, 30] LSF bytes -> (dst [B, 6], src [B, 6], type [B] int64,
+    meta [B, 14]), as parse_lsf (m17_rx_parse.cpp:52-70) does."""
+    return (lsf_bytes[..., 0:6], lsf_bytes[..., 6:12],
+            bits.bytes_to_word(lsf_bytes[..., 12:14]), lsf_bytes[..., 14:28])

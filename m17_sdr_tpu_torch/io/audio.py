@@ -118,13 +118,15 @@ class LoopbackAudio:
         self._rlock = threading.Lock()
 
     def audio_output(self, pcm: np.ndarray) -> None:
+        # the lock covers the puts too, so that two writers' blocks never
+        # interleave (a put blocks only while the queue is full)
         with self._rlock:
             pcm = np.concatenate(
                 [self._residue, np.asarray(pcm, dtype=_DT)])
             nblk = len(pcm) // AUDIO_BLOCK
             self._residue = pcm[nblk * AUDIO_BLOCK:]
-        for i in range(nblk):
-            self._q.put(pcm[i * AUDIO_BLOCK:(i + 1) * AUDIO_BLOCK])
+            for i in range(nblk):
+                self._q.put(pcm[i * AUDIO_BLOCK:(i + 1) * AUDIO_BLOCK])
 
     def audio_input(self, n: int = AUDIO_BLOCK,
                     timeout: float | None = 1.0) -> np.ndarray | None:
@@ -183,23 +185,35 @@ class DeviceSink:
                     raise RuntimeError(
                         "no audio player found (need paplay or aplay; "
                         "or set M17_AUDIO_PLAYER)")
+        self._cmd = player
+        self.broken = False     # the player's pipe broke; audio is lost from then on
         self._proc = subprocess.Popen(
             player, stdin=subprocess.PIPE,
             stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
 
-    def audio_output(self, pcm: np.ndarray) -> None:
+    def _pipe_broke(self) -> None:
         # a dead player (daemon restart, user kill) degrades audio; it
-        # must not unwind the live RX session that is feeding it
+        # must not unwind the live RX session that is feeding it, but
+        # the user is told once
+        if not self.broken:
+            self.broken = True
+            import sys
+
+            print(f"warning: audio player {self._cmd[0]!r} exited "
+                  f"(code {self._proc.poll()}); decoded audio is no longer played",
+                  file=sys.stderr, flush=True)
+
+    def audio_output(self, pcm: np.ndarray) -> None:
         try:
             self._proc.stdin.write(np.asarray(pcm, dtype=_DT).tobytes())
         except (BrokenPipeError, ValueError):   # ValueError: closed pipe
-            pass
+            self._pipe_broke()
 
     def audio_flush(self) -> None:   # audio_io.cpp:60-65
         try:
             self._proc.stdin.flush()
         except (BrokenPipeError, ValueError):
-            pass
+            self._pipe_broke()
 
     def close(self) -> None:
         try:

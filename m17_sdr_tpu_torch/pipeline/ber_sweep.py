@@ -3,9 +3,11 @@ whole sweep is one batched TX -> AWGN -> RX pass (per-channel sigma).
 
 Port of ``m17_sdr_tpu.pipeline.ber_sweep``.  ``bert_sweep_counts``
 keeps the error accounting on the device (``prbs.check_stream_device``).
-The noise is ``noise`` ([B, 2, T], unit variance) or is drawn from
-``generator``.  The sweep sharded over several devices, with its
-counters summed across them, is not ported yet.
+The noise is ``noise`` ([B, 2, T], unit variance), is drawn from
+``generator``, or is keyed per channel by ``seed`` (``channel.keyed_noise``).
+``pod_bert_sweep`` shards the sweep's channels over a process group and
+sums its counters across it; with keyed noise it equals the unsharded
+sweep bit for bit.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..dsp import channel
+from ..mesh.sharding import shard_channels
 from ..spec import prbs
 from ..spec.constants import BERT_BITS
 from . import loopback
@@ -82,15 +86,23 @@ def recovery_tolerance(p: float, channels: int) -> float:
 def bert_sweep_counts(snr_vec: torch.Tensor, n_frames: int,
                       noise: torch.Tensor | None = None,
                       generator: torch.Generator | None = None,
+                      seed: int | None = None, first_channel: int = 0,
                       use_kernel: bool | None = None):
     """The BERT sweep over one channel block, on ``snr_vec``'s device.
 
-    snr_vec [B] dB.  Returns (errors [B], bits [B], unsynced [B],
-    frames [B]) int32, all on the device.
+    snr_vec [B] dB.  The noise is ``noise``, drawn from ``generator``, or
+    keyed by ``seed`` per global channel index, this block's channel c
+    being ``first_channel + c`` (exactly one of the three).  Returns
+    (errors [B], bits [B], unsynced [B], frames [B]) int32, all on the
+    device.
     """
     batch = snr_vec.shape[0]
     dibits = txp.build_bert_session_dibits(batch, n_frames, device=snr_vec.device)
     iq, _ = txp.dibits_to_iq(dibits)
+    if seed is not None:
+        if noise is not None or generator is not None:
+            raise ValueError("pass exactly one of noise, generator and seed")
+        noise = channel.keyed_noise(iq.shape, seed, first_channel, iq.device)
     iq = channel.awgn(iq, snr_vec, noise=noise, generator=generator)
     out, _ = rx_stream(loopback._blockify(iq), RxSessionState.init(batch, iq.device),
                        use_kernel=use_kernel)
@@ -98,3 +110,25 @@ def bert_sweep_counts(snr_vec: torch.Tensor, n_frames: int,
     bb = out.bert_bits.reshape(batch, bv.shape[1], -1)
     err, bits, uns = prbs.check_stream_device(bv, bb)
     return err, bits, uns, bv.sum(dim=-1, dtype=torch.int32)
+
+
+def pod_bert_sweep(group, snr_vec: torch.Tensor, n_frames: int, seed: int | None = None,
+                   noise: torch.Tensor | None = None):
+    """The sweep sharded over ``group``: every rank passes the whole
+    ``snr_vec`` [B] and runs its own B/n channels (rank r holds channels
+    [r B/n, (r+1) B/n)).  The noise is keyed per global channel by
+    ``seed``, or is this rank's rows of ``noise`` [B, 2, T] (exactly one).
+
+    Returns this rank's (errors, bits, unsynced, frames) [B/n] and the
+    totals [4] int64 of the four counters over the group (one
+    ``all_reduce``).
+    """
+    local = shard_channels(snr_vec, group)
+    first = dist.get_rank(group) * local.shape[0]
+    if noise is not None:
+        noise = shard_channels(noise, group)
+    err, bits, uns, frames = bert_sweep_counts(local, n_frames, noise=noise, seed=seed,
+                                               first_channel=first)
+    totals = torch.stack([x.sum(dtype=torch.int64) for x in (err, bits, uns, frames)])
+    dist.all_reduce(totals, group=group)
+    return err, bits, uns, frames, totals

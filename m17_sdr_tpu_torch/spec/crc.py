@@ -30,6 +30,16 @@ def _crc_numpy(data: np.ndarray, init: int = CRC_INIT) -> int:
     return crc
 
 
+def _build_byte_table() -> np.ndarray:
+    """CRC of each single byte from a zero register: the byte-at-a-time
+    loop's table (m17_crc.cpp:26-35)."""
+    return np.array([_crc_numpy(np.array([i], dtype=np.uint8), init=0) for i in range(256)],
+                    dtype=np.int64)
+
+
+CRC_TABLE = _build_byte_table()
+
+
 @functools.lru_cache(maxsize=None)
 def _affine(nbytes: int) -> tuple[np.ndarray, np.ndarray]:
     """(A [8*nbytes, 16] float32 0/1, c [16] int64): the CRC's linear part
@@ -58,6 +68,17 @@ def crc16_fixed(data: torch.Tensor) -> torch.Tensor:
     crc_bits = crc_bits ^ on_device(c, dev)
     shifts = torch.arange(15, -1, -1, device=dev)
     return (crc_bits << shifts).sum(dim=-1)
+
+
+def crc16_scan(data: torch.Tensor) -> torch.Tensor:
+    """CRC-16 of [..., N] uint8 messages -> int64 [...], by the byte-table
+    loop over N (m17_crc.cpp:26-35), for any N without an affine table."""
+    table = on_device(CRC_TABLE, data.device)
+    x = data.to(torch.int64)
+    crc = torch.full(x.shape[:-1], CRC_INIT, dtype=torch.int64, device=data.device)
+    for i in range(x.shape[-1]):
+        crc = ((crc << 8) ^ table[((crc >> 8) ^ x[..., i]) & 0xFF]) & 0xFFFF
+    return crc
 
 
 def crc16_append(data: torch.Tensor) -> torch.Tensor:

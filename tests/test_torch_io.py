@@ -364,8 +364,12 @@ def test_cli_sweep_on_cpu_and_pod_exits_2():
                              "--frames", "2", "--snr-min", "20").stdout)
     assert [p["snr_db"] for p in points] == [20.0, 21.0]
     assert all(p["bit_errors"] == 0 and p["frames_sent"] == 4 for p in points)
-    r = _cli("--device", "cpu", "sweep", "--pod", check=False)
-    assert r.returncode == 2 and "item 12" in r.stderr
+    # --pod runs on a one-rank world and prints the JAX CLI's keys
+    pod = json.loads(_cli("--device", "cpu", "sweep", "--pod", "--points", "2", "--channels",
+                          "2", "--frames", "2", "--snr-min", "20").stdout)
+    assert set(pod) == {"mesh_devices", "channels", "totals_psum", "points"}
+    assert pod["mesh_devices"] == 1 and pod["channels"] == 2
+    assert [p["snr_db"] for p in pod["points"]] == [20.0, 21.0]
 
 
 # ---------------------------------------------------------------------------

@@ -403,8 +403,8 @@ def test_mod_state_round_trip_continues_a_jax_stream():
     dibits = rng.integers(0, 4, (2, 384), dtype=np.uint8)
     _, st_j = _jax_modulate(dibits[:, :192])
     flat = {f: np.asarray(getattr(st_j, f)) for f in st_j._fields}
-    st_t = convert.mod_state_from_numpy(flat, "cpu")
-    back = convert.mod_state_to_numpy(st_t)
+    st_t = convert.fields_from_numpy(t_mod.ModState, flat, "cpu")
+    back = convert.fields_to_numpy(st_t)
     assert set(back) == set(flat)
     for k in flat:
         assert back[k].dtype == flat[k].dtype and back[k].shape == flat[k].shape
@@ -413,4 +413,4 @@ def test_mod_state_round_trip_continues_a_jax_stream():
     iq_t, _ = t_mod.modulate_dibits(t(dibits[:, 192:]), st_t)
     np.testing.assert_allclose(iq_t.numpy(), iq_j, atol=IQ_ATOL)
     with pytest.raises(ValueError):
-        convert.mod_state_from_numpy({"phase": flat["phase"]}, "cpu")
+        convert.fields_from_numpy(t_mod.ModState, {"phase": flat["phase"]}, "cpu")
