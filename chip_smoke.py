@@ -94,9 +94,30 @@ Needs one CUDA card; exits non-zero without one.  Phases, each printed:
    output's peak) and ``equalize_train`` at B=4096 over EQ_SYMBOLS
    symbols (within EQ_TOL); each one's wall time and device launches
    (plain torch loops: the launch count is their cost);
-17. a ``kernels`` summary, then one JSON line with each kernel's launches
-   (summed over the paths of phases 4, 6-15, each counted from 0 just
-   before it), error, times and bound, then the last line
+17. the soft-domain parity record, BER_PARITY_r4.json (64 channels x 64
+   frames; stream 11 points, packet and BERT 7 each): every point
+   regenerated with the record's seed scheme by ``ber_parity.replay_record``
+   and decoded on the card, all points of a kind in one ``rx_stream_soft``
+   call; each point must equal the recorded ``jax`` entry exactly (frames,
+   total, bit errors, bits, and the typed extras garbled frames, clean
+   errors, clean bits, packets ok) and pass the record's predicates
+   against its ``ref`` tuple; wall time per kind; then the stream 12 dB
+   point decoded on the kernels and on the plain versions: equal decodes;
+18. the IQ-domain parity record, BER_PARITY_IQ_r5.json (16 x 16 int16 IQ,
+   ``awgn`` and ``offset300Hz``, 7 points each), regenerated by
+   ``ber_parity_iq.replay_record_iq`` with noise from a seeded generator on
+   the card (an independent realization: JAX's draws are not available
+   here) and decoded through ``rx_stream`` in one call: every point must
+   pass ``frame_agreement_ok`` and ``ber_agreement_ok`` against the
+   recorded ``ref``; the recorded ``jax`` tuple is printed beside the
+   port's; wall time; then, at each config's 18 dB point, the card's
+   decode of the replayed wire must equal the CPU's decode of the same
+   wire, and the frames recovered over 8 further noise draws are printed
+   (the spread of the draw; tests/test_torch_ber_parity_iq_record.py holds
+   the port's decode of JAX's own wires to the recorded ``jax`` tuples);
+19. a ``kernels`` summary, then one JSON line with each kernel's launches
+   (summed over the paths of phases 4, 6-15 and 17-18, each counted from 0
+   just before it), error, times and bound, then the last line
    ``{"ok": true, "device": ...}``.
 
 A kernel's bound is the least time the card could take for its work: the
@@ -159,6 +180,12 @@ EQ_SYMBOLS = 192         # equalize_train's symbols (one frame)
 EQ_TOL = 1e-4            # equalize_train card vs CPU, symbols and taps (trained on known symbols)
 POD_CLI = ("--points", "4", "--channels", "256", "--frames", "8", "--snr-min", "8",
            "--snr-step", "4")
+PARITY_SOFT = "BER_PARITY_r4.json"
+PARITY_IQ = "BER_PARITY_IQ_r5.json"
+PARITY_KINDS = ("stream", "packet", "bert")
+PARITY_PLAIN_DB = 12.0   # the soft-domain stream point also decoded on the plain versions
+PARITY_IQ_DB = 18.0      # the IQ points also decoded on the CPU and drawn again
+PARITY_IQ_SEEDS = 8      # further noise draws at each PARITY_IQ_DB point
 CLI_MODULE = "m17_sdr_tpu_torch.app.main"
 # runs the CLI module as `python -m` does, then reports the kernels'
 # launch counts on stderr at exit
@@ -433,8 +460,10 @@ def main() -> int:
         mesh(blocks, legs["kernel"][2], dev, paths, card)
         pod_sweep(dev, paths, card)
     dormant_dsp(blocks, dev, card)
+    parity_soft(dev, paths, card)
+    parity_iq(dev, paths, card)
 
-    # ---- phase 17: summary
+    # ---- phase 19: summary
     sources = {"viterbi": ("m17_sdr_tpu_torch/csrc/viterbi.cu",
                            "m17_sdr_tpu/fec/viterbi_pallas.py:58", _build.VITERBI),
                "receiver_scan": ("m17_sdr_tpu_torch/csrc/receiver_scan.cu",
@@ -1160,6 +1189,118 @@ def dormant_dsp(blocks, dev, card: str) -> None:
           f"{pll_n} device launches; equalize_train at B={B} over {EQ_SYMBOLS} symbols of an "
           f"ISI channel within {eq_err:.3g} of the CPU (last-64 MSE {mse:.4f}): {eq_ms:.1f} ms, "
           f"{eq_n} device launches; {card}", flush=True)
+
+
+def parity_soft(dev, paths: dict, card: str) -> None:
+    """Phase 17: BER_PARITY_r4.json regenerated and decoded on the card."""
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.pipeline import ber_parity as bp
+
+    record = Path(__file__).resolve().parent / PARITY_SOFT
+    reset_launches(_build.KERNELS)
+    results, walls = {}, {}
+    for kind in PARITY_KINDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[kind] = bp.replay_record(record, (kind,), device=dev)
+        walls[kind] = time.perf_counter() - t0
+    got = read_launches("BER parity soft", _build.KERNELS, paths)
+    for kind, pts in results.items():
+        for p in pts:
+            if not p.equals_recorded_jax():
+                fail(f"parity replay {kind} {p.snr_db} dB: port {p.port} {p.port_extra} vs "
+                     f"the recorded jax {p.recorded['jax']} {p.recorded.get('extra', {})}")
+            if not p.checks_ok():
+                fail(f"parity replay {kind} {p.snr_db} dB: {p.checks} against the recorded "
+                     f"ref {p.recorded['ref']}, port {p.port}")
+        rows = "; ".join(f"{p.snr_db:g} dB {p.port[0]}/{p.port[1]} {p.port[2]}/{p.port[3]}"
+                         for p in pts)
+        print(f"phase 17 parity {kind}: {len(pts)} points x {pts[0].port[1]} frames, one "
+              f"rx_stream_soft call: every point equal to the recorded jax entry"
+              f"{' and its typed extras' if kind != 'stream' else ''} and passing "
+              f"{', '.join(pts[0].checks)} against the recorded ref; {walls[kind]:.2f} s wall "
+              f"(waveforms, decode, scoring); frames and bit errors: {rows}; {card}", flush=True)
+    print(f"phase 17 parity soft: launches {got}", flush=True)
+
+    # the stream point at PARITY_PLAIN_DB, on the kernels and on the plain versions
+    rec = json.loads(record.read_text())
+    i, row = next((i, r) for i, r in enumerate(rec["stream"]["points"])
+                  if r["snr_db"] == PARITY_PLAIN_DB)
+    wave, payloads, _, nf = bp.record_point(rec, "stream", i, dev)
+    legs = {}
+    for leg, use_kernel in (("kernel", None), ("plain", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        legs[leg] = (bp.run_chain(wave, nf=nf, device=dev, use_kernel=use_kernel),
+                     time.perf_counter() - t0)
+    (dec_k, t_k), (dec_r, t_r) = legs["kernel"], legs["plain"]
+    if not bp.same_decodes(dec_k, dec_r):
+        fail(f"parity {PARITY_PLAIN_DB:g} dB stream: kernel and plain decodes differ")
+    tup = bp.score(dec_k.stream, payloads, bp.MIN_FN)
+    if tup != bp._tuple(row["jax"]):
+        fail(f"parity {PARITY_PLAIN_DB:g} dB stream: {tup} vs the recorded {row['jax']}")
+    print(f"phase 17 parity stream {PARITY_PLAIN_DB:g} dB, {wave.shape[0]} channels x "
+          f"{wave.shape[1] // bp.CHUNK_2X} blocks: decodes equal on the kernels and the plain "
+          f"versions ({len(dec_k.stream)} payloads routed, score {tup}); {t_k:.2f} s vs "
+          f"{t_r:.2f} s wall", flush=True)
+
+
+def parity_iq(dev, paths: dict, card: str) -> None:
+    """Phase 18: BER_PARITY_IQ_r5.json regenerated on the card (own draws)."""
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.pipeline import ber_parity_iq as biq
+
+    record = Path(__file__).resolve().parent / PARITY_IQ
+    reset_launches(_build.KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pts = biq.replay_record_iq(record, device=dev)
+    wall = time.perf_counter() - t0
+    got = read_launches("BER parity IQ", _build.KERNELS, paths)
+    for p in pts:
+        if not p.checks_ok():
+            fail(f"IQ parity replay {p.kind} {p.snr_db} dB: {p.checks}; port {p.port} vs the "
+                 f"recorded ref {p.recorded['ref']}")
+    for cfg in dict.fromkeys(p.kind for p in pts):
+        rows = "; ".join(f"{p.snr_db:g} dB port {p.port[0]}/{p.port[1]} {p.port[2]} err, "
+                         f"recorded jax {p.recorded_jax()[0]} {p.recorded_jax()[2]} err, "
+                         f"ref {p.recorded['ref']['frames']} {p.recorded['ref']['bit_errors']} err"
+                         for p in pts if p.kind == cfg)
+        print(f"phase 18 IQ parity {cfg}: every point passes frame_agreement_ok and "
+              f"ber_agreement_ok against the recorded ref (the port's noise is drawn on the "
+              f"card, so its draws differ from the record's): {rows}", flush=True)
+    print(f"phase 18 IQ parity: {len(pts)} points in one rx_stream call; {wall:.2f} s wall "
+          f"(TX, noise, decode, scoring); launches {got}; {card}", flush=True)
+
+    # each config's PARITY_IQ_DB point: the card's decode of the replayed wire
+    # against the CPU's decode of the same wire, and the frames recovered over
+    # PARITY_IQ_SEEDS further draws (seeds after the record's)
+    from m17_sdr_tpu_torch.pipeline import ber_parity as bp
+
+    rec = json.loads(record.read_text())
+    nch, nf, min_fn = rec["channels"], rec["frames"], rec["min_fn_scored"]
+    for name, cfg in rec["configs"].items():
+        i = next(i for i, r in enumerate(cfg["points"]) if r["snr_db"] == PARITY_IQ_DB)
+        wire, payloads = biq.record_point_iq(rec, name, i, dev)
+        on_card, on_cpu = (biq.run_chain_iq(wire, device=d) for d in (dev, "cpu"))
+        if on_card != on_cpu:
+            differ = set(on_card.stream.items()) ^ set(on_cpu.stream.items())
+            fail(f"IQ parity {name} {PARITY_IQ_DB:g} dB: the card's decode differs from the "
+                 f"CPU's on the same wire ({len(differ)} deliveries)")
+        seeds = [bp.SEED_BASE + bp.SEED_STEP * i + s for s in range(1, PARITY_IQ_SEEDS + 1)]
+        off = biq.config_offset_hz(name)
+        made = [biq.make_iq_wire(nch, nf, PARITY_IQ_DB, seed=s, freq_offset_hz=off, device=dev)
+                for s in seeds]
+        dec = biq.run_chain_iq(np.concatenate([w for w, _ in made]), device=dev)
+        frames = [bp.score(bp._channels(dec, k * nch, nch).stream, p, min_fn)[0]
+                  for k, (_, p) in enumerate(made)]
+        row = cfg["points"][i]
+        print(f"phase 18 IQ parity {name} {PARITY_IQ_DB:g} dB: the card's decode of the replayed "
+              f"wire equals the CPU's ({len(on_card.stream)} payloads routed, "
+              f"{bp.score(on_card.stream, payloads, min_fn)[0]}/{nch * (nf - min_fn)} scored); "
+              f"frames over {PARITY_IQ_SEEDS} further draws (seeds {seeds[0]}-{seeds[-1]}): "
+              f"{frames}, mean {statistics.mean(frames):.2f}; recorded ref {row['ref']['frames']}, "
+              f"jax {row['jax']['frames']}", flush=True)
 
 
 def profile_main_path(blocks, dev, rx_stream, session_state) -> None:

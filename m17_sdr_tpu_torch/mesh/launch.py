@@ -62,7 +62,7 @@ def process_group(device, rank: int = 0, world_size: int = 1, store_path: str | 
             dist.destroy_process_group()
 
 
-def spawn(fn, world_size: int, *args, device="cpu") -> None:
+def spawn(fn, world_size: int, *args, device="cuda") -> None:
     """Run ``fn(rank, world_size, device, *args)`` in ``world_size`` new
     processes on this host, each a rank of one process group for tensors on
     ``device`` (its own card on CUDA) with one CPU thread, so that N ranks

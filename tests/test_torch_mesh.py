@@ -271,6 +271,21 @@ def test_keyed_noise_depends_only_on_seed_and_channel():
         keyed_noise((1, 2, 4), -1, 0, "cpu")
 
 
+def test_spawn_defaults_to_the_card(monkeypatch):
+    """Like every entry point of the port, the launcher runs its ranks on
+    the card unless the caller asks for the CPU."""
+    seen = {}
+
+    def fake_spawn(fn, args, nprocs, join):
+        seen["device"], seen["nprocs"] = args[3], nprocs
+
+    monkeypatch.setattr(torch.multiprocessing, "spawn", fake_spawn)
+    launch.spawn(torch_mesh_workers.run_jobs, 2)
+    assert seen == {"device": "cuda", "nprocs": 2}
+    launch.spawn(torch_mesh_workers.run_jobs, 2, device="cpu")
+    assert seen["device"] == "cpu"
+
+
 def _sweep_pod(*prefix: str) -> dict:
     r = subprocess.run(
         [sys.executable, *prefix, "-m", "m17_sdr_tpu_torch.app.main", "--device", "cpu",
