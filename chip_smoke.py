@@ -115,8 +115,23 @@ Needs one CUDA card; exits non-zero without one.  Phases, each printed:
    wire, and the frames recovered over 8 further noise draws are printed
    (the spread of the draw; tests/test_torch_ber_parity_iq_record.py holds
    the port's decode of JAX's own wires to the recorded ``jax`` tuples);
-19. a ``kernels`` summary, then one JSON line with each kernel's launches
-   (summed over the paths of phases 4, 6-15 and 17-18, each counted from 0
+19. the stream quality gate (``m17_sdr_tpu_torch.tools.quality_gate``, the
+   port of tools/quality_gate.py): its seven regimes at QUALITY_GATE_r5.json's
+   size (32 channels x 24 frames, seed 0) through ``rx_stream_soft`` and
+   ``rx_stream`` on the card; the five numpy-noise regimes (AWGN 7, 10 and
+   14 dB, two-ray ISI under the auto-armed and the forced equalizer) must
+   equal the record (integers exactly, the quality extremes and
+   ``eye_est_med`` within QG_FLOAT_ABS), offset+drift and Pluto, on noise
+   drawn on the card, must meet ``gate_ok``'s two bounds, and the card's
+   decode of their wires must equal the CPU's (floats within
+   QG_RTOL/QG_ATOL, the difference nearest its bound printed); then all
+   seven at scale, B=4096 (Pluto B=1024) x 24 frames: each regime's whole
+   tally, ``gate_ok`` (printed, not asserted: a bound missed there is a
+   finding about the gate), wall times and launches, and its first
+   QG_SLICE channels decoded on the CPU must equal the card's decode field
+   by field (likewise);
+20. a ``kernels`` summary, then one JSON line with each kernel's launches
+   (summed over the paths of phases 4, 6-15 and 17-19, each counted from 0
    just before it), error, times and bound, then the last line
    ``{"ok": true, "device": ...}``.
 
@@ -186,6 +201,12 @@ PARITY_KINDS = ("stream", "packet", "bert")
 PARITY_PLAIN_DB = 12.0   # the soft-domain stream point also decoded on the plain versions
 PARITY_IQ_DB = 18.0      # the IQ points also decoded on the CPU and drawn again
 PARITY_IQ_SEEDS = 8      # further noise draws at each PARITY_IQ_DB point
+QUALITY_GATE = "QUALITY_GATE_r5.json"
+QG_B = 4096              # channels of the 48 kHz quality-gate regimes at scale
+QG_PLUTO_B = 1024        # channels of the Pluto regime at scale (8x the bytes a channel)
+QG_SLICE = 8             # channels of each at-scale regime also decoded on the CPU
+QG_FLOAT_ABS = 1e-3      # the record's quality extremes and eye_est_med (1e-4 relative apart)
+QG_RTOL, QG_ATOL = 1e-3, 1e-5   # card vs CPU float fields (tests/torch_parity.py's bounds)
 CLI_MODULE = "m17_sdr_tpu_torch.app.main"
 # runs the CLI module as `python -m` does, then reports the kernels'
 # launch counts on stderr at exit
@@ -462,8 +483,9 @@ def main() -> int:
     dormant_dsp(blocks, dev, card)
     parity_soft(dev, paths, card)
     parity_iq(dev, paths, card)
+    quality_gate(dev, paths, card)
 
-    # ---- phase 19: summary
+    # ---- phase 20: summary
     sources = {"viterbi": ("m17_sdr_tpu_torch/csrc/viterbi.cu",
                            "m17_sdr_tpu/fec/viterbi_pallas.py:58", _build.VITERBI),
                "receiver_scan": ("m17_sdr_tpu_torch/csrc/receiver_scan.cu",
@@ -1301,6 +1323,129 @@ def parity_iq(dev, paths: dict, card: str) -> None:
               f"frames over {PARITY_IQ_SEEDS} further draws (seeds {seeds[0]}-{seeds[-1]}): "
               f"{frames}, mean {statistics.mean(frames):.2f}; recorded ref {row['ref']['frames']}, "
               f"jax {row['jax']['frames']}", flush=True)
+
+
+def match_cpu(what: str, out_card, out_cpu) -> tuple[float, float, str]:
+    """Every output field of the card's decode against the CPU's decode of
+    the same input: integer, bool and byte fields exactly, floats within
+    QG_RTOL/QG_ATOL (NaN equal to NaN).  Returns the float difference that
+    takes the largest share of its bound: (share, difference, field)."""
+    worst = (0.0, 0.0, "")
+    for name in out_cpu._fields:
+        a, b = getattr(out_card, name).cpu(), getattr(out_cpu, name)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"{what}: {name} is {a.dtype} {list(a.shape)} on the card, "
+                 f"{b.dtype} {list(b.shape)} on the CPU")
+        if a.dtype.is_floating_point:
+            neq = ~torch.isclose(a, b, rtol=QG_RTOL, atol=QG_ATOL, equal_nan=True)
+            d = (a - b).abs().flatten()
+            share = torch.nan_to_num(d / (QG_ATOL + QG_RTOL * b.abs().flatten()), nan=0.0)
+            if share.numel() and share.max().item() > worst[0]:
+                i = share.argmax()
+                worst = (share[i].item(), d[i].item(), name)
+        else:
+            neq = a != b
+        if neq.any():
+            idx = neq.nonzero()[0].tolist()
+            fail(f"{what}: {name} differs between the card and the CPU at channel {idx[0]}"
+                 f"{f', index {idx[1:]}' if len(idx) > 1 else ''}: "
+                 f"{a[tuple(idx)].item()} vs {b[tuple(idx)].item()}")
+    return worst
+
+
+def quality_gate(dev, paths: dict, card: str) -> None:
+    """Phase 19: the stream quality gate's seven regimes, at the record's
+    size against QUALITY_GATE_r5.json, then at scale."""
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.tools import quality_gate as qg
+
+    rec = json.loads((Path(__file__).resolve().parent / QUALITY_GATE).read_text())
+    nch, nf = rec["channels"], rec["frames_per_session"]
+
+    # (a) the record's size on the card; offset+drift and Pluto on the card's draws
+    reset_launches(_build.KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    made, decoded = qg.decode_regimes(nch, nf, 0, dev)
+    doc = qg.document(made, decoded, nch, nf)
+    wall = time.perf_counter() - t0
+    got = read_launches("quality gate record", _build.KERNELS, paths)
+    for name in qg.REGIMES:
+        r, want = doc["regimes"][name], rec["regimes"][name]
+        if name in qg.IQ_REGIMES:
+            if not qg.gate_ok({name: r}):
+                fail(f"quality gate {name} on the card's draws misses a bound: {json.dumps(r)}")
+            continue
+        for key, value in want.items():
+            if key in ("clean_quality_floor", "garbage_quality_ceiling", "eye_est_med") \
+                    and value is not None and r[key] is not None:
+                ok = abs(r[key] - value) <= QG_FLOAT_ABS
+            else:
+                ok = r[key] == value
+            if not ok:
+                fail(f"quality gate {name}: {key} {r[key]} vs the record's {value}")
+    out_card = decoded[qg.IQ_REGIMES][0]
+    out_cpu, _ = qg.decode_group(qg.IQ_REGIMES, (made[name][0].cpu() for name in qg.IQ_REGIMES),
+                                 "cpu")
+    diffs = {}
+    for k, name in enumerate(qg.IQ_REGIMES):
+        diffs[name] = match_cpu(f"quality gate record {name}",
+                                qg.channels(out_card, k * nch, nch),
+                                qg.channels(out_cpu, k * nch, nch))
+    for name, r in doc["regimes"].items():
+        print(f"phase 19 quality gate record {qg.summary_line(name, r)}", flush=True)
+    print(f"phase 19 quality gate record ({nch} x {nf}, seed 0): the five numpy-noise regimes "
+          f"equal {QUALITY_GATE} (integers exactly, quality extremes and eye_est_med within "
+          f"{QG_FLOAT_ABS:g}); offset+drift and Pluto on the card's draws within both bounds, "
+          f"and the card's decode of their wires equal to the CPU's (the float difference "
+          f"nearest its bound, rtol {QG_RTOL:g} atol {QG_ATOL:g}: "
+          + "; ".join(f"{n} {d:.3g} in {f}, {s:.3g} of the bound"
+                      for n, (s, d, f) in diffs.items())
+          + f"); ok {doc['ok']}; {wall:.2f} s wall; "
+          f"launches {got}; {card}", flush=True)
+
+    # (b) at scale: every regime on the card, its first QG_SLICE channels on the CPU
+    reset_launches(_build.KERNELS)
+    regimes, slices = {}, {}
+    for name in qg.REGIMES:
+        b = QG_PLUTO_B if name == qg.PLUTO else QG_B
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name != qg.ISI_EQ:                # both ISI regimes decode one wave
+            x, payloads = qg.regime_input(name, b, nf, 0, dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        before = {k.symbol: k.launches for k in _build.KERNELS}
+        t_dec, (out, st) = wall_ms(lambda: qg.decode(name, x, dev))  # noqa: B023
+        n = {k.symbol: k.launches - before[k.symbol] for k in _build.KERNELS}
+        t0 = time.perf_counter()
+        r = regimes[name] = qg.regime_tally(name, out, st, payloads, nf)
+        t_score = time.perf_counter() - t0
+        slices[name] = (x[:QG_SLICE].cpu() if torch.is_tensor(x) else x[:QG_SLICE].copy(),
+                        type(out)(*(f.cpu() for f in qg.channels(out, 0, QG_SLICE))))
+        print(f"phase 19 quality gate {name} at B={b} x {nf} frames: gate_ok "
+              f"{qg.gate_ok({name: r})}; build {t_build:.2f} s, decode {t_dec / 1e3:.2f} s, "
+              f"scoring {t_score:.2f} s wall; launches {n}; {card}; tally {json.dumps(r)}",
+              flush=True)
+        del out, st
+        torch.cuda.empty_cache()
+    got = read_launches("quality gate 4096", _build.KERNELS, paths)
+    t0 = time.perf_counter()
+    for group in qg.GROUPS:
+        out_cpu, _ = qg.decode_group(group, (slices[name][0] for name in group), "cpu")
+        for k, name in enumerate(group):
+            s, d, field = match_cpu(f"quality gate {name} channels 0-{QG_SLICE - 1}",
+                                    slices[name][1],
+                                    qg.channels(out_cpu, k * QG_SLICE, QG_SLICE))
+            print(f"phase 19 quality gate {name} channels 0-{QG_SLICE - 1}: card = CPU; the "
+                  f"float difference nearest its bound {d:.3g} in {field or '-'}, {s:.3g} of "
+                  f"the bound", flush=True)
+    t_cpu = time.perf_counter() - t0
+    print(f"phase 19 quality gate at scale (B={QG_B}, Pluto B={QG_PLUTO_B}, {nf} frames): "
+          f"gate_ok {qg.gate_ok(regimes)} (printed, not asserted); each regime's first "
+          f"{QG_SLICE} channels decode on the CPU as on the card, field by field, floats within "
+          f"rtol {QG_RTOL:g} atol {QG_ATOL:g} ({t_cpu:.1f} s of CPU decodes); launches {got}",
+          flush=True)
 
 
 def profile_main_path(blocks, dev, rx_stream, session_state) -> None:

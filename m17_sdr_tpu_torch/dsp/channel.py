@@ -89,7 +89,12 @@ def carrier_ramp(iq2: torch.Tensor, rate_hz_per_s, start_hz=0.0,
 
 def timing_drift(iq2: torch.Tensor, ppm, offset_samples=0.0) -> torch.Tensor:
     """Linear-interpolation resampler: output n reads input position
-    n*(1+ppm*1e-6) + offset (a static offset plus linear clock drift)."""
+    n*(1+ppm*1e-6) + offset (a static offset plus linear clock drift).
+
+    Positions are clipped to n - 1.001, which float32 rounds to n - 1 once
+    T reaches 2^15; there the upper neighbour is the last sample (frac is
+    0, so the output is that sample), where the JAX function's gather
+    reads past the end and fills NaN."""
     dev = iq2.device
     ppm = _per_channel(ppm, dev)
     off = _per_channel(offset_samples, dev)
@@ -101,7 +106,7 @@ def timing_drift(iq2: torch.Tensor, ppm, offset_samples=0.0) -> torch.Tensor:
     frac = pos - i0.to(torch.float32)
     i0b = i0[:, None, :].expand(iq2.shape)
     x0 = torch.gather(iq2, -1, i0b)
-    x1 = torch.gather(iq2, -1, i0b + 1)
+    x1 = torch.gather(iq2, -1, torch.clamp(i0b + 1, max=n - 1))
     return x0 + (x1 - x0) * frac[:, None, :]
 
 

@@ -82,6 +82,57 @@ def voice_iq(nch: int, nf: int, seed: int, carrier_hz=(), sigma: float = 0.0):
     return np.stack([z.real, z.imag], axis=1).astype(np.float32)
 
 
+def _jax_gate_session(nch: int, nf: int, seed: int):
+    """The JAX quality-gate tool's ``mk_session`` (tools/quality_gate.py):
+    (dibits, payloads [nch, nf, 16] from ``default_rng(seed)``)."""
+    import jax.numpy as jnp
+
+    from m17_sdr_tpu.pipeline import tx as txp
+    from m17_sdr_tpu.pipeline.ber_parity import _lsf_for
+
+    pl = np.random.default_rng(seed).integers(0, 256, (nch, nf, 16), dtype=np.uint8)
+    return txp.build_voice_session_dibits(_lsf_for(nch), jnp.asarray(pl)), pl
+
+
+def jax_offset_drift_wire(nch: int, nf: int, seed: int, noisy: bool = True):
+    """The JAX quality-gate tool's offset+drift wire, by its own lines:
+    (IQ [nch, 2, T] float32, payloads, the unit noise ``awgn`` drew from
+    ``PRNGKey(seed)``, or None and no noise where not ``noisy``)."""
+    import jax
+
+    from m17_sdr_tpu.dsp import channel
+    from m17_sdr_tpu.pipeline import tx as txp
+
+    dibits, pl = _jax_gate_session(nch, nf, seed + 1)
+    iq, _ = txp.dibits_to_iq(dibits)
+    iq = channel.timing_drift(iq, 120.0)
+    iq = channel.carrier_offset(iq, 300.0)
+    if not noisy:
+        return np.array(iq), pl, None
+    key = jax.random.PRNGKey(seed)
+    return np.array(channel.awgn(key, iq, 17.0)), pl, np.array(jax.random.normal(key, iq.shape))
+
+
+def jax_pluto_wire(nch: int, nf: int, seed: int):
+    """The JAX quality-gate tool's Pluto wire, by its own lines: (48 kHz IQ
+    [nch, 2, T] float32 after the x8 decimator, payloads, the unit noise
+    [nch, 2, 8 T] ``awgn`` drew from ``PRNGKey(seed + 9)`` at 384 kHz)."""
+    import jax
+    import jax.numpy as jnp
+
+    from m17_sdr_tpu.dsp import channel, resample
+    from m17_sdr_tpu.pipeline import tx as txp
+
+    dibits, pl = _jax_gate_session(nch, nf, seed + 2)
+    iq384, _ = txp.dibits_to_iq(dibits, oversample=80)
+    key = jax.random.PRNGKey(seed + 9)
+    noise = np.array(jax.random.normal(key, iq384.shape))
+    iq384 = channel.awgn(key, iq384, 20.0)
+    iq48, _ = resample.fir_decimate(iq384, jnp.asarray(resample.pluto_dec_taps()),
+                                    resample.decimate_init(nch), factor=8)
+    return np.array(iq48), pl, noise
+
+
 def iq_blocks(iq: np.ndarray, block: int = 1920) -> np.ndarray:
     """[B, 2, T] -> [B, T // block, 2, block]."""
     b, _, t = iq.shape
