@@ -102,7 +102,9 @@ Needs one CUDA card; exits non-zero without one.  Phases, each printed:
    total, bit errors, bits, and the typed extras garbled frames, clean
    errors, clean bits, packets ok) and pass the record's predicates
    against its ``ref`` tuple; wall time per kind; then the stream 12 dB
-   point decoded on the kernels and on the plain versions: equal decodes;
+   point decoded on the kernels again (its score equal to the record), and
+   its first PARITY_PLAIN_BLOCKS blocks on the kernels and on the plain
+   versions: equal decodes;
 18. the IQ-domain parity record, BER_PARITY_IQ_r5.json (16 x 16 int16 IQ,
    ``awgn`` and ``offset300Hz``, 7 points each), regenerated by
    ``ber_parity_iq.replay_record_iq`` with noise from a seeded generator on
@@ -130,8 +132,32 @@ Needs one CUDA card; exits non-zero without one.  Phases, each printed:
    finding about the gate), wall times and launches, and its first
    QG_SLICE channels decoded on the CPU must equal the card's decode field
    by field (likewise);
-20. a ``kernels`` summary, then one JSON line with each kernel's launches
-   (summed over the paths of phases 4, 6-15 and 17-19, each counted from 0
+20. the stage profiler (``m17_sdr_tpu_torch.tools.profile_stages``, the
+   port of tools/profile_stages.py) at B=4096 on the bench mix: its seven
+   kernel-path stages, PROFILE_ITERS passes a rep, PROFILE_REPS interleaved
+   reps, one whole-session call a pass, and the
+   document printed beside phase 4's device busy ms per block under the
+   profiler (the stages' host-clock times are host-bound, not device
+   time); then the device busy time of ``rx_kernel``'s calls
+   (PROFILE_BLOCKS blocks) and of one ``rx_session`` call under the
+   profiler, each beside its stage time; that whole-session ``rx_block``
+   call (S2=4992) at B=4096 must equal, in its first QG_SLICE channels,
+   output and state, a CPU plain call on the same channels (floats within
+   QG_RTOL/QG_ATOL, the difference nearest its bound printed);
+21. the streaming bench (``m17_sdr_tpu_torch.tools.streaming_bench``, the
+   port of tools/streaming_bench.py) on its uniform int16 noise, the legs of
+   STREAMING_r5.json: throughput at 48 kHz (B=1, 256, 4096) and 384 kHz
+   (B=256, 1024; 50 x B x 15360 x 4 bytes of noise, so not 4096), and
+   5-block chunk latency at B=1 and 256 at both rates; each JSON line, its
+   wall time and launches; then, for each (B, rate), one more card session
+   of STREAM_CHECK_BLOCKS noise blocks through the tool's
+   ``throughput_session`` (the chunk of the pair's first leg) must equal, in
+   its first min(B, QG_SLICE) channels, every output field and the final
+   state, a plain ``StreamingRx`` session on the CPU over the same channels
+   (floats within QG_RTOL/QG_ATOL, the difference nearest its bound
+   printed);
+22. a ``kernels`` summary, then one JSON line with each kernel's launches
+   (summed over the paths of phases 4, 6-15 and 17-21, each counted from 0
    just before it), error, times and bound, then the last line
    ``{"ok": true, "device": ...}``.
 
@@ -145,6 +171,7 @@ Any mismatch prints where it was found and exits 1 before the last line.
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -199,6 +226,7 @@ PARITY_SOFT = "BER_PARITY_r4.json"
 PARITY_IQ = "BER_PARITY_IQ_r5.json"
 PARITY_KINDS = ("stream", "packet", "bert")
 PARITY_PLAIN_DB = 12.0   # the soft-domain stream point also decoded on the plain versions
+PARITY_PLAIN_BLOCKS = 25  # ... over its first blocks (the plain scan takes ~1.6 s a block)
 PARITY_IQ_DB = 18.0      # the IQ points also decoded on the CPU and drawn again
 PARITY_IQ_SEEDS = 8      # further noise draws at each PARITY_IQ_DB point
 QUALITY_GATE = "QUALITY_GATE_r5.json"
@@ -207,6 +235,18 @@ QG_PLUTO_B = 1024        # channels of the Pluto regime at scale (8x the bytes a
 QG_SLICE = 8             # channels of each at-scale regime also decoded on the CPU
 QG_FLOAT_ABS = 1e-3      # the record's quality extremes and eye_est_med (1e-4 relative apart)
 QG_RTOL, QG_ATOL = 1e-3, 1e-5   # card vs CPU float fields (tests/torch_parity.py's bounds)
+PROFILE_ITERS, PROFILE_REPS = 40, 4   # the stage profiler's passes a rep and reps (JAX's)
+# phase 21's legs: (mode, batch, rate, runs); 500 blocks each, 5-block
+# chunks in the latency legs (the JAX tool's defaults and STREAMING_r5.json)
+STREAM_LEGS = (("throughput", 1, 48_000, 3), ("chunk_latency", 1, 48_000, 1),
+               ("throughput", 256, 48_000, 3), ("chunk_latency", 256, 48_000, 1),
+               ("throughput", 4096, 48_000, 3),
+               ("chunk_latency", 1, 384_000, 1),
+               ("throughput", 256, 384_000, 2), ("chunk_latency", 256, 384_000, 1),
+               ("throughput", 1024, 384_000, 2))
+STREAM_BENCH_BLOCKS = 500
+STREAM_CHECK_BLOCKS = 30  # a checked session: a 25-block chunk and its 5-block tail
+LATENCY_CHUNK = 5
 CLI_MODULE = "m17_sdr_tpu_torch.app.main"
 # runs the CLI module as `python -m` does, then reports the kernels'
 # launch counts on stderr at exit
@@ -450,7 +490,7 @@ def main() -> int:
     compare_outputs("main path", out_k, st_k, out_r, st_r)
     print(f"phase 4 main path: all {len(out_k._fields)} output fields and the final "
           f"state equal (floats to {FLOAT_TOL}); launches {launches}", flush=True)
-    profile_main_path(blocks, dev, rx_stream, RxSessionState)
+    busy_ms = profile_main_path(blocks, dev, rx_stream, RxSessionState)
 
     # ---- phase 5: the main path against the JAX record
     iq = torch.as_tensor(fx["iq"]).reshape(-1, 2, NBLK, T).permute(0, 2, 1, 3)
@@ -484,8 +524,10 @@ def main() -> int:
     parity_soft(dev, paths, card)
     parity_iq(dev, paths, card)
     quality_gate(dev, paths, card)
+    profile_stages(dev, paths, card, busy_ms)
+    streaming_bench(dev, paths, card)
 
-    # ---- phase 20: summary
+    # ---- phase 22: summary
     sources = {"viterbi": ("m17_sdr_tpu_torch/csrc/viterbi.cu",
                            "m17_sdr_tpu/fec/viterbi_pallas.py:58", _build.VITERBI),
                "receiver_scan": ("m17_sdr_tpu_torch/csrc/receiver_scan.cu",
@@ -1244,27 +1286,32 @@ def parity_soft(dev, paths: dict, card: str) -> None:
               f"(waveforms, decode, scoring); frames and bit errors: {rows}; {card}", flush=True)
     print(f"phase 17 parity soft: launches {got}", flush=True)
 
-    # the stream point at PARITY_PLAIN_DB, on the kernels and on the plain versions
+    # the stream point at PARITY_PLAIN_DB on the kernels, scored; its first
+    # PARITY_PLAIN_BLOCKS blocks on the kernels and on the plain versions
     rec = json.loads(record.read_text())
     i, row = next((i, r) for i, r in enumerate(rec["stream"]["points"])
                   if r["snr_db"] == PARITY_PLAIN_DB)
     wave, payloads, _, nf = bp.record_point(rec, "stream", i, dev)
+    dec = bp.run_chain(wave, nf=nf, device=dev)
+    tup = bp.score(dec.stream, payloads, bp.MIN_FN)
+    if tup != bp._tuple(row["jax"]):
+        fail(f"parity {PARITY_PLAIN_DB:g} dB stream: {tup} vs the recorded {row['jax']}")
+    head = wave[:, :PARITY_PLAIN_BLOCKS * bp.CHUNK_2X]
     legs = {}
     for leg, use_kernel in (("kernel", None), ("plain", False)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        legs[leg] = (bp.run_chain(wave, nf=nf, device=dev, use_kernel=use_kernel),
+        legs[leg] = (bp.run_chain(head, nf=nf, device=dev, use_kernel=use_kernel),
                      time.perf_counter() - t0)
     (dec_k, t_k), (dec_r, t_r) = legs["kernel"], legs["plain"]
     if not bp.same_decodes(dec_k, dec_r):
-        fail(f"parity {PARITY_PLAIN_DB:g} dB stream: kernel and plain decodes differ")
-    tup = bp.score(dec_k.stream, payloads, bp.MIN_FN)
-    if tup != bp._tuple(row["jax"]):
-        fail(f"parity {PARITY_PLAIN_DB:g} dB stream: {tup} vs the recorded {row['jax']}")
+        fail(f"parity {PARITY_PLAIN_DB:g} dB stream: kernel and plain decodes of the first "
+             f"{PARITY_PLAIN_BLOCKS} blocks differ")
     print(f"phase 17 parity stream {PARITY_PLAIN_DB:g} dB, {wave.shape[0]} channels x "
-          f"{wave.shape[1] // bp.CHUNK_2X} blocks: decodes equal on the kernels and the plain "
-          f"versions ({len(dec_k.stream)} payloads routed, score {tup}); {t_k:.2f} s vs "
-          f"{t_r:.2f} s wall", flush=True)
+          f"{wave.shape[1] // bp.CHUNK_2X} blocks on the kernels: {len(dec.stream)} payloads "
+          f"routed, score {tup}; its first {PARITY_PLAIN_BLOCKS} blocks decode equal on the "
+          f"kernels and the plain versions ({len(dec_k.stream)} payloads routed); {t_k:.2f} s "
+          f"vs {t_r:.2f} s wall", flush=True)
 
 
 def parity_iq(dev, paths: dict, card: str) -> None:
@@ -1327,12 +1374,19 @@ def parity_iq(dev, paths: dict, card: str) -> None:
 
 def match_cpu(what: str, out_card, out_cpu) -> tuple[float, float, str]:
     """Every output field of the card's decode against the CPU's decode of
-    the same input: integer, bool and byte fields exactly, floats within
-    QG_RTOL/QG_ATOL (NaN equal to NaN).  Returns the float difference that
-    takes the largest share of its bound: (share, difference, field)."""
+    the same input; see ``match_fields``."""
+    return match_fields(what, ((name, getattr(out_card, name), getattr(out_cpu, name))
+                               for name in out_cpu._fields))
+
+
+def match_fields(what: str, pairs) -> tuple[float, float, str]:
+    """(name, card tensor, CPU tensor) pairs: integer, bool and byte tensors
+    exactly, floats within QG_RTOL/QG_ATOL (NaN equal to NaN).  Returns the
+    float difference that takes the largest share of its bound: (share,
+    difference, name)."""
     worst = (0.0, 0.0, "")
-    for name in out_cpu._fields:
-        a, b = getattr(out_card, name).cpu(), getattr(out_cpu, name)
+    for name, a, b in pairs:
+        a = a.cpu()
         if a.shape != b.shape or a.dtype != b.dtype:
             fail(f"{what}: {name} is {a.dtype} {list(a.shape)} on the card, "
                  f"{b.dtype} {list(b.shape)} on the CPU")
@@ -1448,34 +1502,181 @@ def quality_gate(dev, paths: dict, card: str) -> None:
           flush=True)
 
 
-def profile_main_path(blocks, dev, rx_stream, session_state) -> None:
-    """Device time and kernel launches per block of the kernel path, by
-    torch.profiler over PROFILE_BLOCKS steady-state blocks."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profile_stages(dev, paths: dict, card: str, busy_ms: float | None) -> None:
+    """Phase 20: the stage profiler at B=4096, then the whole-session call
+    on the card against the CPU."""
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.pipeline.rx import RxSessionState, rx_block
+    from m17_sdr_tpu_torch.tools import profile_stages as ps
 
+    t_phase = t0 = time.perf_counter()
+    inp = ps.bench_inputs(B, dev)
+    reset_launches(_build.KERNELS)
+    torch.cuda.synchronize()
+    doc = ps.profile(B, dev, PROFILE_ITERS, PROFILE_REPS, inputs=inp)
+    got = read_launches("profile stages", _build.KERNELS, paths)
+    wall = time.perf_counter() - t0
+    print(f"phase 20 profile stages document: {json.dumps(doc)}", flush=True)
+    busy = f"{busy_ms:.3f}" if busy_ms is not None else "not measured"
+    print(f"phase 20 profile stages at B={B} ({PROFILE_ITERS} passes x {doc['nblk']} blocks a "
+          f"rep, {PROFILE_REPS} interleaved reps, host clock to synchronize(), min/med ms "
+          "a block): " + ", ".join(f"{n} {v['ms_per_block_min']}/{v['ms_per_block_med']}"
+                                   for n, v in doc["stages"].items())
+          + f"; derived {json.dumps(doc['derived'])}; beside phase 4's device busy {busy} "
+          f"ms/block under the profiler (AFC on, equalizer auto); launches {got}; "
+          f"{wall:.1f} s wall; {card}; clocks.sm, power.draw, power.limit: "
+          f"{smi('clocks.sm,power.draw,power.limit')}", flush=True)
+
+    # device time of the two rx stages' calls, then the long-block path: one
+    # call on the whole session, S2 = 4992, its first channels against the CPU
+    _, st = ps.rx(inp.blocks[:1], RxSessionState.init(B, dev), 1)
+    busy_rx, _ = profile_window(
+        "phase 20 profile rx_kernel (AFC off, equalizer off)",
+        lambda: ps.rx(inp.blocks[1:1 + PROFILE_BLOCKS], st, 1), PROFILE_BLOCKS)
+    busy_session, (out, state) = profile_window(
+        "phase 20 profile rx_session (one call on the session)",
+        lambda: ps.rx_session(inp.session, RxSessionState.init(B, dev), 1), doc["nblk"])
+    for name, busy_stage in (("rx_kernel", busy_rx), ("rx_session", busy_session)):
+        if busy_stage is not None:
+            stage_ms = doc["stages"][name]["ms_per_block_min"]
+            print(f"phase 20 {name}: device busy {busy_stage:.3f} ms/block under the profiler "
+                  f"against its stage time {stage_ms} ms/block: idle share "
+                  f"{1 - busy_stage / stage_ms:.3f}", flush=True)
+    t0 = time.perf_counter()
+    out_cpu, st_cpu = rx_block(inp.session[:QG_SLICE].cpu(), RxSessionState.init(QG_SLICE, "cpu"))
+    t_cpu = time.perf_counter() - t0
+    worst = max(
+        match_fields(f"rx_session channels 0-{QG_SLICE - 1}",
+                     ((n, getattr(out, n)[:QG_SLICE], getattr(out_cpu, n))
+                      for n in out_cpu._fields)),
+        match_fields(f"rx_session channels 0-{QG_SLICE - 1} final state",
+                     ((n, a[:QG_SLICE], b) for (n, a), (_, b)
+                      in zip(flatten_state(state), flatten_state(st_cpu)))))
+    s, d, field = worst
+    print(f"phase 20 rx_session: one rx_block call on the {inp.session.shape[-1]}-sample session "
+          f"at B={B} ({int(out.stream_valid.sum())} stream "
+          f"frames); channels 0-{QG_SLICE - 1}, every output field and the final state, equal "
+          f"to the CPU's plain call ({t_cpu:.1f} s); the float difference nearest its bound "
+          f"{d:.3g} in {field or '-'}, {s:.3g} of the bound (rtol {QG_RTOL:g} atol "
+          f"{QG_ATOL:g}); phase 20 {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+
+
+def streaming_bench(dev, paths: dict, card: str) -> None:
+    """Phase 21: the streaming bench's legs on its noise blocks."""
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.tools import streaming_bench as sb
+
+    t_phase = time.perf_counter()
+    reset_launches(_build.KERNELS)
+    rt = {}
+    for (b, rate), legs in itertools.groupby(STREAM_LEGS, key=lambda leg: leg[1:3]):
+        legs = list(legs)
+        t0 = time.perf_counter()
+        noise = sb.noise_blocks(b, rate)
+        print(f"phase 21 streaming bench noise B={b} {rate // 1000} kHz: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for mode, _, _, runs in legs:
+            t0 = time.perf_counter()
+            latency = mode == "chunk_latency"
+            results, _ = sb.run(b, STREAM_BENCH_BLOCKS, rate,
+                                chunk_blocks=LATENCY_CHUNK if latency else None,
+                                chunk_latency=latency, runs=runs, device=dev, blocks=noise)
+            for r in results:
+                print(f"phase 21 streaming bench {mode} B={b} {rate // 1000} kHz: "
+                      f"{json.dumps(r)}", flush=True)
+            if not latency:
+                rt[(b, rate)] = max(r["realtime_channels"] for r in results)
+            print(f"phase 21 streaming bench {mode} B={b} {rate // 1000} kHz: "
+                  f"{time.perf_counter() - t0:.1f} s wall with its warm session; {card}; "
+                  f"clocks.sm, power.draw, power.limit: "
+                  f"{smi('clocks.sm,power.draw,power.limit')}", flush=True)
+        check_stream(b, rate, LATENCY_CHUNK if legs[0][0] == "chunk_latency" else None,
+                     noise, dev)
+        del noise
+    got = read_launches("streaming bench", _build.KERNELS, paths)
+    print(f"phase 21 streaming bench: {len(STREAM_LEGS)} legs, {STREAM_BENCH_BLOCKS} blocks "
+          f"each; best real-time channels "
+          + ", ".join(f"B={b} {rate // 1000} kHz {n}" for (b, rate), n in rt.items())
+          + f"; launches {got}; {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+
+
+def check_stream(b: int, rate: int, chunk_blocks: int | None, noise: list, dev) -> None:
+    """One card session of STREAM_CHECK_BLOCKS noise blocks through the
+    streaming bench's ``throughput_session``, its first min(b, QG_SLICE)
+    channels against a plain session on the CPU over the same channels:
+    every output field and the final state."""
+    from m17_sdr_tpu_torch.app.streaming import DEFAULT_CHUNK_BLOCKS, StreamingRx
+    from m17_sdr_tpu_torch.tools import streaming_bench as sb
+
+    k = min(b, QG_SLICE)
+    chunk_blocks = chunk_blocks or DEFAULT_CHUNK_BLOCKS
+    sessions, t_cpu = [], 0.0
+    for d, blocks in ((dev, noise), ("cpu", [x[:k] for x in noise])):
+        t0 = time.perf_counter()
+        srx = StreamingRx(batch=blocks[0].shape[0], input_rate=rate, chunk_blocks=chunk_blocks,
+                          equalize="auto", device=d)
+        sb.throughput_session(srx, blocks, STREAM_CHECK_BLOCKS)
+        sessions.append(srx.finish())
+        t_cpu = time.perf_counter() - t0
+    (out, state, n), (out_cpu, st_cpu, n_cpu) = sessions
+    what = f"streaming bench B={b} {rate // 1000} kHz channels 0-{k - 1}"
+    if (n, n_cpu) != (STREAM_CHECK_BLOCKS, STREAM_CHECK_BLOCKS):
+        fail(f"{what}: {n} blocks on the card, {n_cpu} on the CPU, not {STREAM_CHECK_BLOCKS}")
+    t = torch.from_numpy
+    s, d, field = max(
+        match_fields(what, ((f, t(getattr(out, f)[:k]), t(getattr(out_cpu, f)))
+                            for f in out_cpu._fields)),
+        match_fields(f"{what} final state", ((f, t(a[:k]), t(c)) for (f, a), (_, c)
+                                             in zip(flatten_state(state),
+                                                    flatten_state(st_cpu)))))
+    print(f"phase 21 streaming bench B={b} {rate // 1000} kHz: a {STREAM_CHECK_BLOCKS}-block "
+          f"session in {chunk_blocks}-block chunks ({int(out.stream_valid.sum())} stream "
+          f"frames); channels 0-{k - 1}, every output field and the final state, equal to the "
+          f"CPU's plain session ({t_cpu:.1f} s); the float difference nearest its bound "
+          f"{d:.3g} in {field or '-'}, {s:.3g} of the bound (rtol {QG_RTOL:g} atol "
+          f"{QG_ATOL:g})", flush=True)
+
+
+def profile_main_path(blocks, dev, rx_stream, session_state) -> float | None:
+    """Device time and kernel launches per block of the kernel path, by
+    torch.profiler over PROFILE_BLOCKS steady-state blocks: the device's
+    busy ms per block, or None where the profiler recorded none."""
     _, state = rx_stream(blocks[:, :1], session_state.init(B, dev), afc_enabled=True,
                          equalize="auto")
     torch.cuda.synchronize()
     run = blocks[:, 1:1 + PROFILE_BLOCKS]
+    busy_ms, _ = profile_window(
+        "phase 4 profile", lambda: rx_stream(run, state, afc_enabled=True, equalize="auto"),
+        PROFILE_BLOCKS)
+    return busy_ms
+
+
+def profile_window(label: str, fn, nblk: int) -> tuple[float | None, object]:
+    """(device busy ms per block, fn's result) of one fn() over ``nblk``
+    blocks' work under torch.profiler, with its launches a block and top
+    kernels printed; busy is None where the profiler recorded no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rx_stream(run, state, afc_enabled=True, equalize="auto")
+        res = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = [getattr(e, "self_device_time_total", 0.0) for e in kern]
     if not kern or sum(dev_us) == 0:
-        print("phase 4 profile: the profiler recorded no device time (not measured)",
-              flush=True)
-        return
-    busy_ms = sum(dev_us) / 1e3 / PROFILE_BLOCKS
+        print(f"{label}: the profiler recorded no device time (not measured)", flush=True)
+        return None, res
+    busy_ms = sum(dev_us) / 1e3 / nblk
     top = sorted(zip(dev_us, kern), key=lambda p: -p[0])[:8]
-    print(f"phase 4 profile ({PROFILE_BLOCKS} blocks under torch.profiler): device busy "
-          f"{busy_ms:.3f} ms/block of {wall * 1e3 / PROFILE_BLOCKS:.1f} ms/block wall; "
-          f"{sum(e.count for e in kern) / PROFILE_BLOCKS:.0f} device launches/block; top: "
-          + "; ".join(f"{e.key[:60]} {us / 1e3 / PROFILE_BLOCKS:.3f} ms "
-                      f"x{e.count // PROFILE_BLOCKS}" for us, e in top), flush=True)
+    print(f"{label} ({nblk} blocks under torch.profiler): device busy "
+          f"{busy_ms:.3f} ms/block of {wall * 1e3 / nblk:.1f} ms/block wall; "
+          f"{sum(e.count for e in kern) / nblk:.0f} device launches/block; top: "
+          + "; ".join(f"{e.key[:60]} {us / 1e3 / nblk:.3f} ms "
+                      f"x{e.count / nblk:.3g}" for us, e in top), flush=True)
+    return busy_ms, res
 
 
 def _fixture_path():

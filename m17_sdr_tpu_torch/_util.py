@@ -1,5 +1,5 @@
-"""Device copies of module-level numpy tables, made once per device, and
-the float32 convolution context."""
+"""Device copies of module-level numpy tables, made once per device, the
+float32 convolution context, and the device fence of the timing tools."""
 
 from __future__ import annotations
 
@@ -36,3 +36,10 @@ def no_tf32():
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                      deterministic=cudnn.deterministic, allow_tf32=False):
         yield
+
+
+def fence(device) -> None:
+    """Wait for the work queued on ``device``: ``torch.cuda.synchronize``
+    on CUDA; CPU work is done when its call returns."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
