@@ -156,8 +156,23 @@ Needs one CUDA card; exits non-zero without one.  Phases, each printed:
    state, a plain ``StreamingRx`` session on the CPU over the same channels
    (floats within QG_RTOL/QG_ATOL, the difference nearest its bound
    printed);
-22. a ``kernels`` summary, then one JSON line with each kernel's launches
-   (summed over the paths of phases 4, 6-15 and 17-21, each counted from 0
+22. the port's headline bench (``m17_sdr_tpu_torch.bench``, the port of
+   bench.py) at B=4096 in full: its JSON line, which must name the kernel
+   receiver, with every headline rep's implied input read under the HBM
+   roof; the headline's call (one whole session from a fresh state) must
+   equal, in its first QG_SLICE channels, output and state, a CPU plain
+   call on those channels' session (floats within QG_RTOL/QG_ATOL), and the
+   Viterbi leg's last call must equal ``viterbi_decode_ref`` in bits and
+   metric on its first BENCH_VIT_CHECK rows; then K1 alone at the Viterbi
+   leg's shape, by CUDA events, with its plain time and bound, beside the
+   leg's time a call;
+23. the weak-scaling tool (``m17_sdr_tpu_torch.tools.weak_scaling``, the
+   port of tools/weak_scaling.py) with ``nccl`` ranks at WS_CH_PER_DEV
+   channels a rank and WS_BLOCKS blocks, one rank a card (N = 1 on a
+   one-card machine): the point, whose legs must agree (outputs, state,
+   reduced metrics); the ranks' kernel launches come back in the document;
+24. a ``kernels`` summary, then one JSON line with each kernel's launches
+   (summed over the paths of phases 4, 6-15 and 17-23, each counted from 0
    just before it), error, times and bound, then the last line
    ``{"ok": true, "device": ...}``.
 
@@ -236,17 +251,20 @@ QG_SLICE = 8             # channels of each at-scale regime also decoded on the 
 QG_FLOAT_ABS = 1e-3      # the record's quality extremes and eye_est_med (1e-4 relative apart)
 QG_RTOL, QG_ATOL = 1e-3, 1e-5   # card vs CPU float fields (tests/torch_parity.py's bounds)
 PROFILE_ITERS, PROFILE_REPS = 40, 4   # the stage profiler's passes a rep and reps (JAX's)
-# phase 21's legs: (mode, batch, rate, runs); 500 blocks each, 5-block
-# chunks in the latency legs (the JAX tool's defaults and STREAMING_r5.json)
+# phase 21's legs: (mode, batch, rate, runs); 5-block chunks in the latency
+# legs (the JAX tool's defaults and STREAMING_r5.json); 250 blocks each, half
+# the tool's default (10 whole 25-block chunks), to keep the script's time
 STREAM_LEGS = (("throughput", 1, 48_000, 3), ("chunk_latency", 1, 48_000, 1),
                ("throughput", 256, 48_000, 3), ("chunk_latency", 256, 48_000, 1),
                ("throughput", 4096, 48_000, 3),
                ("chunk_latency", 1, 384_000, 1),
                ("throughput", 256, 384_000, 2), ("chunk_latency", 256, 384_000, 1),
                ("throughput", 1024, 384_000, 2))
-STREAM_BENCH_BLOCKS = 500
+STREAM_BENCH_BLOCKS = 250
 STREAM_CHECK_BLOCKS = 30  # a checked session: a 25-block chunk and its 5-block tail
 LATENCY_CHUNK = 5
+BENCH_VIT_CHECK = 64     # rows of the bench's Viterbi leg held to the plain decoder
+WS_CH_PER_DEV, WS_BLOCKS = 4096, 16   # the weak-scaling point on the card
 CLI_MODULE = "m17_sdr_tpu_torch.app.main"
 # runs the CLI module as `python -m` does, then reports the kernels'
 # launch counts on stderr at exit
@@ -526,8 +544,10 @@ def main() -> int:
     quality_gate(dev, paths, card)
     profile_stages(dev, paths, card, busy_ms)
     streaming_bench(dev, paths, card)
+    bench(dev, paths, card)
+    weak_scaling(paths, card)
 
-    # ---- phase 22: summary
+    # ---- phase 24: summary
     sources = {"viterbi": ("m17_sdr_tpu_torch/csrc/viterbi.cu",
                            "m17_sdr_tpu/fec/viterbi_pallas.py:58", _build.VITERBI),
                "receiver_scan": ("m17_sdr_tpu_torch/csrc/receiver_scan.cu",
@@ -961,7 +981,9 @@ def run_cli(*args: str) -> tuple[dict, dict]:
     return json.loads(r.stdout.splitlines()[-1]), json.loads(launches[-1][9:])
 
 
-def record_cli(path: str, launches: dict, paths: dict) -> None:
+def record_launches(path: str, launches: dict, paths: dict) -> None:
+    """Launch counts another process reported, recorded under ``path``;
+    fails if a kernel was not launched."""
     for sym, n in launches.items():
         if n == 0:
             fail(f"{path} never launched {sym}")
@@ -992,7 +1014,7 @@ def cli(dev, paths: dict, card: str) -> None:
         stats, launches = run_cli("rx", "--in", caps[0], "--in", caps[1], "--payload-out",
                                   str(d / "rx.bin"), "--save-state", str(d / "st.npz"))
         t_rx = time.perf_counter() - t0
-        record_cli("cli rx", launches, paths)
+        record_launches("cli rx", launches, paths)
         for i, ch in enumerate(stats["channels"]):
             got = (d / f"rx.bin.ch{i}").read_bytes()
             if (got != sent[i] or ch["lsf"] != {"dst": "AB1CDE", "src": "G4GUO"}
@@ -1004,13 +1026,13 @@ def cli(dev, paths: dict, card: str) -> None:
     t0 = time.perf_counter()
     bert, launches = run_cli("bert", "--channels", str(B), "--frames", "25", "--snr", "25")
     t_bert = time.perf_counter() - t0
-    record_cli("cli bert", launches, paths)
+    record_launches("cli bert", launches, paths)
     if bert["ber"] != 0.0 or bert["bits"] == 0:
         fail(f"CLI bert: {bert}")
     t0 = time.perf_counter()
     pod, launches = run_cli("sweep", "--pod", *POD_CLI)
     t_pod = time.perf_counter() - t0
-    record_cli("cli sweep --pod", launches, paths)
+    record_launches("cli sweep --pod", launches, paths)
     pts = pod.get("points", [])
     sums = [sum(p[k] for p in pts) for k in ("bit_errors", "bits", "frames_recovered")]
     if (set(pod) != {"mesh_devices", "channels", "totals_psum", "points"} or len(pts) != 4
@@ -1598,6 +1620,99 @@ def streaming_bench(dev, paths: dict, card: str) -> None:
           f"each; best real-time channels "
           + ", ".join(f"B={b} {rate // 1000} kHz {n}" for (b, rate), n in rt.items())
           + f"; launches {got}; {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+
+
+def bench(dev, paths: dict, card: str) -> None:
+    """Phase 22: the port's bench at B=4096 in full; its headline call's
+    first channels against the CPU, its Viterbi bits against the plain
+    decoder."""
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch import bench as pb
+    from m17_sdr_tpu_torch.fec.viterbi import viterbi_decode_cuda, viterbi_decode_ref
+    from m17_sdr_tpu_torch.pipeline.benchdata import make_bench_blocks
+    from m17_sdr_tpu_torch.pipeline.rx import RxSessionState, rx_block
+
+    t_phase = time.perf_counter()
+    reset_launches(_build.KERNELS)
+    torch.cuda.synchronize()
+    res = pb.run(B, dev)
+    got = read_launches("bench", _build.KERNELS, paths)
+    wall = time.perf_counter() - t_phase
+    doc, head = res.doc, res.headline
+    print(f"phase 22 bench document: {json.dumps(doc)}", flush=True)
+    if doc["receiver"] != "kernel":
+        fail(f"bench: the receiver leg is {doc['receiver']}, not the kernel")
+    gbps = [r * pb.INPUT_BYTES_PER_SAMPLE / 1e9 for r in head.rates]
+    if max(gbps) > pb.HBM_ROOF_GBPS:
+        fail(f"bench: a rep implies {max(gbps):.1f} GB/s of input read, above the roof "
+             f"{pb.HBM_ROOF_GBPS:.1f}")
+    ab = doc["ab_t1920"]["kernel"]
+    print(f"phase 22 bench at B={B}: headline {doc['value']} channel-samples/s "
+          f"(vs_baseline {doc['vs_baseline']}; reps {doc['config']['rep_rates']}, calls "
+          f"{head.calls}, implied input read {min(gbps):.1f}-{max(gbps):.1f} GB/s, every rep "
+          f"under the roof {pb.HBM_ROOF_GBPS:.1f}); ab_t1920 kernel min {ab['min']} med "
+          f"{ab['med']}; Viterbi {doc['viterbi_frames_per_s']} frames/s (vs_baseline "
+          f"{doc['viterbi_vs_baseline']}); launches {got}; {wall:.1f} s wall; {card}; clocks.sm, "
+          f"power.draw, power.limit: {smi('clocks.sm,power.draw,power.limit')}", flush=True)
+
+    blocks, _ = make_bench_blocks(B, T, device=dev)
+    session = torch.cat([b[:QG_SLICE] for b in blocks], dim=-1).cpu()
+    t0 = time.perf_counter()
+    out_cpu, st_cpu = rx_block(session, RxSessionState.init(QG_SLICE, "cpu"))
+    t_cpu = time.perf_counter() - t0
+    s, d, field = max(
+        match_fields(f"bench headline call channels 0-{QG_SLICE - 1}",
+                     ((n, getattr(head.out, n)[:QG_SLICE], getattr(out_cpu, n))
+                      for n in out_cpu._fields)),
+        match_fields(f"bench headline call channels 0-{QG_SLICE - 1} final state",
+                     ((n, a[:QG_SLICE], b) for (n, a), (_, b)
+                      in zip(flatten_state(head.state), flatten_state(st_cpu)))))
+    n_vit = BENCH_VIT_CHECK
+    bits_r, met_r = viterbi_decode_ref(res.vit_soft[:n_vit])
+    if not torch.equal(res.vit_bits[:n_vit], bits_r):
+        fail(first_diff("bench Viterbi bits", res.vit_bits[:n_vit], bits_r, False))
+    if not torch.equal(res.vit_metric[:n_vit], met_r):
+        fail(first_diff("bench Viterbi metric", res.vit_metric[:n_vit], met_r, False))
+    # K1 alone at the Viterbi leg's shape, beside the leg's time a call
+    x = res.vit_soft
+    k1_ms = cuda_ms(lambda: viterbi_decode_cuda(x), 20)
+    plain_ms = cuda_ms(lambda: viterbi_decode_ref(x), 3)
+    nbytes = x.nbytes + res.vit_bits.nbytes + res.vit_metric.nbytes
+    b_ms, by = bound(nbytes, K1_OPS_PER_STEP * x.shape[0] * pb.VIT_STEPS)
+    call_ms = 1e3 * x.shape[0] / doc["viterbi_frames_per_s"]
+    print(f"phase 22 K1 at the bench's Viterbi shape {list(x.shape)}: kernel {k1_ms:.4f} ms "
+          f"(median of 20 by CUDA events), plain {plain_ms:.2f} ms; bound {b_ms * 1e3:.2f} us "
+          f"({by}, {nbytes / 1e6:.2f} MB), share {b_ms / k1_ms:.3f}; the Viterbi leg's chained "
+          f"call {call_ms:.4f} ms by the host clock, K1 {k1_ms / call_ms:.3f} of it", flush=True)
+    print(f"phase 22 bench headline call ({int(head.out.stream_valid.sum())} stream frames): "
+          f"channels 0-{QG_SLICE - 1}, every output field and the final state, equal to the "
+          f"CPU's plain call ({t_cpu:.1f} s); the float difference nearest its bound {d:.3g} in "
+          f"{field or '-'}, {s:.3g} of the bound (rtol {QG_RTOL:g} atol {QG_ATOL:g}); the "
+          f"Viterbi leg's last call on rows 0-{n_vit - 1}: bits and metric equal to "
+          f"viterbi_decode_ref; phase 22 {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+
+
+def weak_scaling(paths: dict, card: str) -> None:
+    """Phase 23: the weak-scaling tool on the card's nccl ranks."""
+    from m17_sdr_tpu_torch.tools import weak_scaling as ws
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    doc = ws.scaling(WS_CH_PER_DEV, WS_BLOCKS, "cuda")
+    print(f"phase 23 weak scaling document: {json.dumps(doc)}", flush=True)
+    for p in doc["points"]:
+        if not (p["legs_equal"] and p["metrics_equal_sum"]):
+            fail(f"weak scaling N={p['devices']}: legs equal {p['legs_equal']}, reduced "
+                 f"metrics equal the sum {p['metrics_equal_sum']}")
+    record_launches("weak scaling", {sym: sum(p["kernel_launches"][sym] for p in doc["points"])
+                                     for sym in doc["points"][0]["kernel_launches"]}, paths)
+    print(f"phase 23 weak scaling ({doc['backend']} ranks at N = {doc['ranks']}, the cards "
+          f"this machine has): " + "; ".join(
+              f"N={p['devices']} {p['channels']} channels x {p['blocks']} blocks: nocomm "
+              f"{p['t_nocomm_s']:.4f} s, sharded {p['t_sharded_s']:.4f} s, efficiency "
+              f"{p['sharding_efficiency']}, both legs equal" for p in doc["points"])
+          + f"; launches {paths['weak scaling']}; {time.perf_counter() - t0:.1f} s wall; "
+          f"{card}", flush=True)
 
 
 def check_stream(b: int, rate: int, chunk_blocks: int | None, noise: list, dev) -> None:

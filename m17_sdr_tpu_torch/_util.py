@@ -1,9 +1,11 @@
 """Device copies of module-level numpy tables, made once per device, the
-float32 convolution context, and the device fence of the timing tools."""
+float32 convolution context, and the device fence and record of the
+timing tools."""
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 
 import numpy as np
 import torch
@@ -43,3 +45,21 @@ def fence(device) -> None:
     on CUDA; CPU work is done when its call returns."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def device_record(device) -> dict:
+    """What a timing document names its device by: ``name`` (the card's
+    name, or "cpu") and ``name_power_limit``, the card's line of
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    (None on the CPU, or where nvidia-smi cannot be run)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"name": "cpu", "name_power_limit": None}
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        smi = subprocess.run(["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        smi = None
+    return {"name": torch.cuda.get_device_name(device), "name_power_limit": smi}
