@@ -17,8 +17,9 @@ is the median rep.  ``vs_baseline`` divides it by the reference C++ RX
 chain's rate on a CPU (BASELINE.md).
 
 Roofline guard: a rate implies an input read of rate * 4 bytes a second
-(int16 I and Q).  A median above the card's HBM bandwidth plus 5 % is
-not a measurement: it is printed on stderr and the process exits 1.  The
+(int16 I and Q).  A rep above the card's HBM bandwidth plus 5 % is not a
+measurement (the JAX bench tests the median; every rep is stricter): it
+is printed on stderr and the process exits 1.  The
 JAX bench waits and retries there, because its TPU's readiness signal
 could run ahead of execution; ``synchronize()`` is a true fence, so the
 port refuses instead.
@@ -180,12 +181,12 @@ def viterbi_rate(soft: torch.Tensor, vit_calls: int = VIT_CALLS, loops: int = VI
 
 
 def roof_error(rates: list) -> str | None:
-    """Why the headline's reps are refused, or None: their median implies
-    an input read above HBM_ROOF_GBPS."""
-    gbps = sorted(rates)[len(rates) // 2] * INPUT_BYTES_PER_SAMPLE / 1e9
+    """Why the headline's reps are refused, or None: a rep implies an
+    input read above HBM_ROOF_GBPS."""
+    gbps = max(rates) * INPUT_BYTES_PER_SAMPLE / 1e9
     if gbps <= HBM_ROOF_GBPS:
         return None
-    return (f"roofline guard: the median rep implies {gbps:.1f} GB/s of input read, above "
+    return (f"roofline guard: a rep implies {gbps:.1f} GB/s of input read, above "
             f"the card's {HBM_ROOF_GBPS:.1f} GB/s (3.35 TB/s + 5 %): not a measurement")
 
 

@@ -24,7 +24,9 @@ from the state the warm call left, as the JAX tool's are.  A leg's
 time in a rep is the slowest rank's: the ranks meet at a barrier, each
 times its call up to a fence, and the times are max-reduced after the
 reps.  Every rank also checks that its two legs' outputs and states are
-equal and that the reduced metrics are the sum of the ranks' own.
+equal and that the reduced metrics are the sum of the ranks' own, and
+keeps its nocomm leg's last output and state on its first KEPT channels,
+so that a caller can hold them against a plain decode of those rows.
 
     python -m m17_sdr_tpu_torch.tools.weak_scaling [ch_per_dev=512]
         [n_blocks=16] [--device cuda|cpu]
@@ -61,6 +63,7 @@ REPS = 5
 WORLD_SIZES = (1, 2, 4, 8)
 SEED = 0
 LEGS = ("nocomm", "sharded")
+KEPT = 8                # channels of each rank whose last output and state it keeps
 
 
 def rank_rows(seed: int, shape: tuple, rank: int, n: int) -> np.ndarray:
@@ -89,8 +92,8 @@ def _legs_equal(a, b) -> bool:
                                                          state_to_numpy(st_b).values())))
 
 
-def _rank(rank: int, n: int, dev, ch_per_dev: int, n_blocks: int, reps: int, out_dir: str,
-          keep_outputs: bool) -> None:
+def _rank(rank: int, n: int, dev, ch_per_dev: int, n_blocks: int, reps: int,
+          out_dir: str) -> None:
     """One rank's two legs: writes ``out_dir/rank<r>.npz``."""
     group = dist.group.WORLD
     iq = torch.as_tensor(rank_rows(SEED, (ch_per_dev * n, n_blocks, 2, BLOCK_SAMPLES),
@@ -121,24 +124,24 @@ def _rank(rank: int, n: int, dev, ch_per_dev: int, n_blocks: int, reps: int, out
            "launches": np.array([k.launches - b for k, b in zip(_build.KERNELS, before)]),
            "metrics": last["sharded"][2].cpu().numpy(), "own": own.cpu().numpy(),
            "legs_equal": np.array(_legs_equal(last["nocomm"][:2], last["sharded"][:2]))}
-    if keep_outputs:
-        for name, (o, s, _) in last.items():
-            res.update({f"{name}/{k}": v.cpu().numpy() for k, v in o._asdict().items()})
-            res.update({f"{name}_state/{k}": v for k, v in state_to_numpy(s).items()})
+    k = min(ch_per_dev, KEPT)
+    res.update({f"out/{f}": v[:k].cpu().numpy() for f, v in out._asdict().items()})
+    res.update({f"state/{f}": v[:k] for f, v in state_to_numpy(state).items()})
     np.savez(Path(out_dir) / f"rank{rank}.npz", **res)
 
 
 def run_point(n: int, ch_per_dev: int = CH_PER_DEV, n_blocks: int = N_BLOCKS,
-              device="cuda", reps: int = REPS, keep_outputs: bool = False):
+              device="cuda", reps: int = REPS):
     """Both legs at world size ``n``: (the point's entry, the ranks'
     results).  A rank's result holds ``times`` [2, reps] (the max over
     ranks, nocomm then sharded), ``launches`` (per kernel of
     ``_build.KERNELS``), ``metrics`` (the reduced ones), ``own`` (its own
-    three), ``legs_equal`` and, with ``keep_outputs``, both legs' last
-    outputs ("nocomm/<field>", "sharded/<field>") and states
-    ("nocomm_state/<key>", ...)."""
+    three), ``legs_equal``, and its nocomm leg's last output
+    ("out/<field>") and final state ("state/<key>") on its first
+    min(ch_per_dev, KEPT) channels: those of two ``rx_stream`` calls on
+    its rows from ``RxSessionState.init``."""
     with tempfile.TemporaryDirectory() as td:
-        launch.spawn(_rank, n, ch_per_dev, n_blocks, reps, td, keep_outputs,
+        launch.spawn(_rank, n, ch_per_dev, n_blocks, reps, td,
                      device=torch.device(device).type)
         ranks = []
         for r in range(n):
@@ -184,14 +187,16 @@ def document(points: list, ch_per_dev: int, device) -> dict:
 
 
 def scaling(ch_per_dev: int = CH_PER_DEV, n_blocks: int = N_BLOCKS, device="cuda",
-            reps: int = REPS) -> dict:
-    """The document over ``world_sizes(device)``; progress on stderr."""
-    points = []
+            reps: int = REPS) -> tuple[dict, list]:
+    """(the document over ``world_sizes(device)``, each point's ranks'
+    results); progress on stderr."""
+    points, ranks = [], []
     for n in world_sizes(device):
-        point, _ = run_point(n, ch_per_dev, n_blocks, device, reps)
+        point, res = run_point(n, ch_per_dev, n_blocks, device, reps)
         print(f"N={n}: {json.dumps(point)}", file=sys.stderr, flush=True)
         points.append(point)
-    return document(points, ch_per_dev, device)
+        ranks.append(res)
+    return document(points, ch_per_dev, device), ranks
 
 
 def main(argv=None) -> int:
@@ -204,7 +209,7 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: no CUDA device; run with --device cpu to use the CPU", file=sys.stderr)
         return 1
-    doc = scaling(args.ch_per_dev, args.n_blocks, args.device)
+    doc, _ = scaling(args.ch_per_dev, args.n_blocks, args.device)
     print(json.dumps(doc))
     bad = [p["devices"] for p in doc["points"]
            if not (p["legs_equal"] and p["metrics_equal_sum"])]

@@ -123,6 +123,8 @@ def test_roofline_guard_refuses_super_physical_rate(monkeypatch, capsys):
     roof_rate = pb.HBM_ROOF_GBPS * 1e9 / 4        # channel-samples/s at the roof
     assert pb.roof_error([roof_rate * 0.99] * 5) is None
     assert pb.roof_error([roof_rate * 0.5, roof_rate * 2, roof_rate * 2]) is not None
+    # one rep over the roof is refused, even with the median under it
+    assert pb.roof_error([roof_rate * 0.5, roof_rate * 0.5, roof_rate * 1.2]) is not None
 
     def fake_headline(session, reps=pb.REPS, rep_s=pb.REP_S):
         rates = [roof_rate * k for k in (0.9, 1.5, 1.6, 1.7, 1.8)]    # median 1.6x the roof
