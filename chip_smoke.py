@@ -175,8 +175,34 @@ Needs one CUDA card; exits non-zero without one.  Phases, each printed:
    the CPU over those rows from a fresh state (floats within
    QG_RTOL/QG_ATOL, the difference nearest its bound printed); the ranks'
    kernel launches come back in the document;
-24. a ``kernels`` summary, then one JSON line with each kernel's launches
-   (summed over the paths of phases 4, 6-15 and 17-23, each counted from 0
+24. the Viterbi self-test (``python -m m17_sdr_tpu_torch.tools.cuda_selftest``,
+   the port of tools/tpu_selftest.py) in a subprocess as a user runs it: its
+   12 checks (random soft bits, clean and noisy codewords at T = 244, 148,
+   210 and 201, 128 trellises each) must read ``ok`` with 0 bit mismatches;
+   then K1 alone at the self-test's new length, 128 x 2*201, against the
+   plain decoder, by CUDA events, with its plain time and bound;
+25. the acceptance gate (``python -m m17_sdr_tpu_torch.tools.kernel_validate``,
+   the port of tools/pallas_validate.py) at B=4096 in a subprocess: the
+   voice session through ``rx_block`` on the kernels and on the plain
+   versions must read ``ok``, both legs 32768 frames with 0 byte errors;
+   each leg's wall time and ms a block;
+26. the pod sweep (``python -m m17_sdr_tpu_torch.tools.sweep_pod --out ...``,
+   the port of tools/sweep_pod.py) at its defaults (4096 channels x 16
+   points x 20 frames) on one ``nccl`` rank in a subprocess: sharded equal
+   to unsharded, totals equal to the sums, every point's frame recovery
+   within ``recovery_tolerance`` of SWEEP_POD_r5.json, no bit error at
+   19.2 and 20 dB; both elapsed times;
+27. the per-block harness (``python -m m17_sdr_tpu_torch.tools.bench_debug``,
+   the port of tools/bench_debug.py) at B=4096 in subprocesses: ``gen``'s
+   saved blocks must equal phase 25's session blocks built here, and
+   ``run`` and ``noise`` print their per-block ms; then each of ``run`` and
+   ``noise`` once more in this process, whose last output and final state
+   on channels 0 to QG_SLICE-1 must equal a plain CPU chain over the same
+   rows from a fresh state (floats within QG_RTOL/QG_ATOL, the difference
+   nearest its bound printed); the median ms a block of signal against
+   noise beside phase 20's ``rx_kernel``;
+28. a ``kernels`` summary, then one JSON line with each kernel's launches
+   (summed over the paths of phases 4, 6-15 and 17-27, each counted from 0
    just before it), error, times and bound, then the last line
    ``{"ok": true, "device": ...}``.
 
@@ -269,14 +295,19 @@ STREAM_CHECK_BLOCKS = 30  # a checked session: a 25-block chunk and its 5-block 
 LATENCY_CHUNK = 5
 BENCH_VIT_CHECK = 64     # rows of the bench's Viterbi leg held to the plain decoder
 WS_CH_PER_DEV, WS_BLOCKS = 4096, 16   # the weak-scaling point on the card
+SELFTEST_STEPS = 201      # the self-test's trellis length that no main path decodes
 CLI_MODULE = "m17_sdr_tpu_torch.app.main"
-# runs the CLI module as `python -m` does, then reports the kernels'
-# launch counts on stderr at exit
-CLI_WRAP = ("import atexit, json, runpy, sys\n"
+TOOLS = "m17_sdr_tpu_torch.tools."
+
+
+def module_wrap(module: str) -> str:
+    """Code that runs ``module`` as `python -m` does, then reports the
+    kernels' launch counts on stderr at exit."""
+    return ("import atexit, json, runpy, sys\n"
             "from m17_sdr_tpu_torch import _build\n"
             "atexit.register(lambda: print('launches ' + json.dumps("
             "{k.symbol: k.launches for k in _build.KERNELS}), file=sys.stderr))\n"
-            f"runpy.run_module('{CLI_MODULE}', run_name='__main__', alter_sys=True)\n")
+            f"runpy.run_module('{module}', run_name='__main__', alter_sys=True)\n")
 
 
 def fail(msg: str) -> None:
@@ -546,18 +577,23 @@ def main() -> int:
     parity_soft(dev, paths, card)
     parity_iq(dev, paths, card)
     quality_gate(dev, paths, card)
-    profile_stages(dev, paths, card, busy_ms)
+    rx_kernel = profile_stages(dev, paths, card, busy_ms)
     streaming_bench(dev, paths, card)
     bench(dev, paths, card)
     weak_scaling(paths, card)
+    cuda_selftest(dev, paths, card)
+    kernel_validate(paths, card)
+    sweep_pod(paths, card)
+    bench_debug(dev, paths, card, rx_kernel)
 
-    # ---- phase 24: summary
+    # ---- phase 28: summary
     sources = {"viterbi": ("m17_sdr_tpu_torch/csrc/viterbi.cu",
                            "m17_sdr_tpu/fec/viterbi_pallas.py:58", _build.VITERBI),
                "receiver_scan": ("m17_sdr_tpu_torch/csrc/receiver_scan.cu",
                                  "m17_sdr_tpu/frame/receiver_pallas.py:73",
                                  _build.RECEIVER_SCAN)}
-    launches = {k.symbol: sum(p[k.symbol] for p in paths.values()) for k in _build.KERNELS}
+    launches = {k.symbol: sum(p.get(k.symbol, 0) for p in paths.values())
+                for k in _build.KERNELS}
     kernels = []
     for name, (source, replaces, k) in sources.items():
         r = report[name]
@@ -569,7 +605,7 @@ def main() -> int:
                         "bound_us": r["bound_ms"] * 1e3, "share": r["bound_ms"] / r["ms"]})
     summary = []
     for name, (_, _, k) in sources.items():
-        per_path = ", ".join(f"{p} {n[k.symbol]}" for p, n in paths.items())
+        per_path = ", ".join(f"{p} {n[k.symbol]}" for p, n in paths.items() if k.symbol in n)
         summary.append(f"{name}: {launches[k.symbol]} launches on the paths ({per_path}), "
                        "parity ok")
     print("kernels " + "; ".join(summary), flush=True)
@@ -974,20 +1010,29 @@ def split_resume(wire: list[np.ndarray], dev, paths: dict) -> None:
           f"launches {got}", flush=True)
 
 
-def run_cli(*args: str) -> tuple[dict, dict]:
-    """(the last stdout JSON line, the kernel launches) of one CLI run."""
-    r = subprocess.run([sys.executable, "-c", CLI_WRAP, *args], capture_output=True,
+def run_module(module: str, *args: str) -> tuple[str, str, dict]:
+    """(stdout, stderr, the kernel launches) of one ``python -m module
+    args`` run in a subprocess from the repository root; fails unless it
+    exits 0."""
+    r = subprocess.run([sys.executable, "-c", module_wrap(module), *args], capture_output=True,
                        text=True, timeout=CLI_TIMEOUT_S,
                        cwd=Path(__file__).resolve().parent)
     if r.returncode != 0:
-        fail(f"CLI {' '.join(args[:1])} exited {r.returncode}: {r.stderr[-2000:]}")
+        fail(f"{module} {' '.join(args[:1])} exited {r.returncode}: {r.stdout[-1000:]} "
+             f"{r.stderr[-2000:]}")
     launches = [ln for ln in r.stderr.splitlines() if ln.startswith("launches ")]
-    return json.loads(r.stdout.splitlines()[-1]), json.loads(launches[-1][9:])
+    return r.stdout, r.stderr, json.loads(launches[-1][9:])
+
+
+def run_cli(*args: str) -> tuple[dict, dict]:
+    """(the last stdout JSON line, the kernel launches) of one CLI run."""
+    out, _, launches = run_module(CLI_MODULE, *args)
+    return json.loads(out.splitlines()[-1]), launches
 
 
 def record_launches(path: str, launches: dict, paths: dict) -> None:
     """Launch counts another process reported, recorded under ``path``;
-    fails if a kernel was not launched."""
+    fails if a kernel it names was not launched."""
     for sym, n in launches.items():
         if n == 0:
             fail(f"{path} never launched {sym}")
@@ -1528,9 +1573,9 @@ def quality_gate(dev, paths: dict, card: str) -> None:
           flush=True)
 
 
-def profile_stages(dev, paths: dict, card: str, busy_ms: float | None) -> None:
+def profile_stages(dev, paths: dict, card: str, busy_ms: float | None) -> dict:
     """Phase 20: the stage profiler at B=4096, then the whole-session call
-    on the card against the CPU."""
+    on the card against the CPU.  Returns the ``rx_kernel`` stage's entry."""
     from m17_sdr_tpu_torch import _build
     from m17_sdr_tpu_torch.pipeline.rx import RxSessionState, rx_block
     from m17_sdr_tpu_torch.tools import profile_stages as ps
@@ -1585,6 +1630,7 @@ def profile_stages(dev, paths: dict, card: str, busy_ms: float | None) -> None:
           f"to the CPU's plain call ({t_cpu:.1f} s); the float difference nearest its bound "
           f"{d:.3g} in {field or '-'}, {s:.3g} of the bound (rtol {QG_RTOL:g} atol "
           f"{QG_ATOL:g}); phase 20 {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return doc["stages"]["rx_kernel"]
 
 
 def streaming_bench(dev, paths: dict, card: str) -> None:
@@ -1743,6 +1789,168 @@ def weak_scaling(paths: dict, card: str) -> None:
           f"bound (rtol {QG_RTOL:g} atol {QG_ATOL:g}); launches {paths['weak scaling']}; "
           f"{time.perf_counter() - t0:.1f} s wall; {card}", flush=True)
 
+
+def cuda_selftest(dev, paths: dict, card: str) -> None:
+    """Phase 24: the Viterbi self-test as a user runs it; then K1 alone at
+    its new trellis length."""
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.fec.viterbi import viterbi_decode_cuda, viterbi_decode_ref
+    from m17_sdr_tpu_torch.tools import cuda_selftest as cs
+
+    t0 = time.perf_counter()
+    out, _, launches = run_module(TOOLS + "cuda_selftest")
+    wall = time.perf_counter() - t0
+    doc = json.loads(out.splitlines()[-1])
+    if not (doc["ok"] and doc["bit_mismatches"] == 0 and doc["platform"] == "cuda"):
+        fail(f"self-test: {json.dumps(doc)}")
+    # the self-test decodes on K1 only
+    record_launches("self-test", {_build.VITERBI.symbol: launches[_build.VITERBI.symbol]}, paths)
+    d = next(d for d in cs.draws() if d.steps == SELFTEST_STEPS)
+    x = torch.as_tensor(d.soft).to(dev)
+    bits, met = viterbi_decode_cuda(x)
+    bits_r, met_r = viterbi_decode_ref(x)
+    if not torch.equal(bits, bits_r):
+        fail(first_diff("K1 bits (self-test T=201)", bits, bits_r, False))
+    if not torch.equal(met, met_r):
+        fail(first_diff("K1 metric (self-test T=201)", met, met_r, False))
+    k1_ms = cuda_ms(lambda: viterbi_decode_cuda(x), 20)
+    plain_ms = cuda_ms(lambda: viterbi_decode_ref(x), 3)
+    nbytes = x.nbytes + bits.nbytes + met.nbytes
+    b_ms, by = bound(nbytes, K1_OPS_PER_STEP * x.shape[0] * SELFTEST_STEPS)
+    print(f"phase 24 self-test: {json.dumps(doc)}; {len(doc['checks'])} checks, 0 bit "
+          f"mismatches; launches {paths['self-test']} (K1 only); {wall:.1f} s wall with the "
+          f"process start; {card}", flush=True)
+    print(f"phase 24 K1 at the self-test's shape {list(x.shape)} (T={SELFTEST_STEPS}): bits and "
+          f"metric equal to the plain decoder; kernel {k1_ms:.4f} ms (median of 20 by CUDA "
+          f"events), plain {plain_ms:.2f} ms; bound {b_ms * 1e3:.3f} us ({by}, "
+          f"{nbytes / 1e6:.3f} MB), share {b_ms / k1_ms:.4f}; {card}; clocks.sm, power.draw, "
+          f"power.limit: {smi('clocks.sm,power.draw,power.limit')}", flush=True)
+
+
+def kernel_validate(paths: dict, card: str) -> None:
+    """Phase 25: the acceptance gate at B=4096 as a user runs it."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out, err, launches = run_module(TOOLS + "kernel_validate")
+    wall = time.perf_counter() - t0
+    doc = json.loads(out.splitlines()[-1])
+    want = {"frames": B * 8, "byte_errors": 0}
+    if not (doc["ok"] and doc["kernel"] == want and doc["plain"] == want
+            and doc["platform"] == "cuda"):
+        fail(f"kernel_validate: {json.dumps(doc)}")
+    record_launches("kernel validate", launches, paths)
+    legs = [ln for ln in err.splitlines() if " leg: " in ln]
+    print(f"phase 25 kernel_validate: {json.dumps(doc)}; " + "; ".join(legs)
+          + f"; launches {launches}; {wall:.1f} s wall with the process start; {card}",
+          flush=True)
+
+
+def sweep_pod(paths: dict, card: str) -> None:
+    """Phase 26: the pod sweep at its defaults on one nccl rank, against
+    the record."""
+    import tempfile
+
+    from m17_sdr_tpu_torch.pipeline.ber_sweep import recovery_tolerance
+
+    torch.cuda.empty_cache()
+    rec = json.loads((Path(__file__).resolve().parent / "SWEEP_POD_r5.json").read_text())
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        path = Path(td) / "sweep_pod.json"
+        out, _, launches = run_module(TOOLS + "sweep_pod", "--out", str(path))
+        doc = json.loads(path.read_text())
+    wall = time.perf_counter() - t0
+    if not (doc["sharded_equals_unsharded"] and doc["totals_equal_sums"]):
+        fail(f"sweep_pod: sharded equals unsharded {doc['sharded_equals_unsharded']}, totals "
+             f"equal the sums {doc['totals_equal_sums']}")
+    if (doc["mesh"]["backend"], doc["channels"], doc["snr_points"],
+            doc["frames_per_channel"]) != ("nccl", rec["channels"], rec["snr_points"],
+                                           rec["frames_per_channel"]):
+        fail(f"sweep_pod ran {doc['mesh']} at {doc['channels']} channels x {doc['snr_points']} "
+             f"points x {doc['frames_per_channel']} frames, not the record's size on nccl")
+    if doc["kernel_launches"]["unsharded"] != launches:
+        fail(f"sweep_pod: the unsharded run reports {doc['kernel_launches']['unsharded']} "
+             f"launches, the process {launches}")
+    cpp = doc["channels_per_point"]
+    rows = []
+    for got, want in zip(doc["curve"], rec["curve"]):
+        tol = recovery_tolerance(want["frame_recovery"], cpp)
+        rows.append(f"{got['snr_db']:.1f} {got['frame_recovery']:.4f}")
+        if abs(got["snr_db"] - want["snr_db"]) > 1e-4:
+            fail(f"sweep_pod point {got['snr_db']} dB is not the record's {want['snr_db']} dB")
+        if abs(got["frame_recovery"] - want["frame_recovery"]) > tol:
+            fail(f"sweep_pod at {got['snr_db']:.1f} dB: frame recovery "
+                 f"{got['frame_recovery']:.4f} vs the recorded {want['frame_recovery']:.4f} "
+                 f"(tolerance {tol:.4f})")
+        if any(abs(got["snr_db"] - c) < 0.05 for c in SWEEP_CLEAN_DB) and got["bit_errors"]:
+            fail(f"sweep_pod at {got['snr_db']:.1f} dB: {got['bit_errors']} bit errors")
+    both = {sym: doc["kernel_launches"]["sharded"][sym] + n for sym, n in launches.items()}
+    record_launches("sweep_pod", both, paths)
+    print(f"phase 26 sweep_pod ({doc['mesh']['devices']} {doc['mesh']['backend']} rank(s), "
+          f"{doc['channels']} channels x {doc['snr_points']} points x "
+          f"{doc['frames_per_channel']} frames): sharded {doc['sharded_elapsed_s']:.3f} s, "
+          f"unsharded {doc['unsharded_elapsed_s']:.3f} s; sharded equals unsharded, totals "
+          f"{doc['totals_psum']} equal the sums; every point within tolerance of the record "
+          f"(dB, recovery: {'; '.join(rows)}), no bit error at "
+          f"{' and '.join(map(str, SWEEP_CLEAN_DB))} dB; launches {both} (sharded "
+          f"{doc['kernel_launches']['sharded']}); {wall:.1f} s wall with two process starts; "
+          f"{card}", flush=True)
+
+
+def bench_debug(dev, paths: dict, card: str, rx_kernel: dict) -> None:
+    """Phase 27: the per-block harness as a user runs it, then its run and
+    noise chains here, their first channels against a plain CPU chain."""
+    import tempfile
+
+    from m17_sdr_tpu_torch import _build
+    from m17_sdr_tpu_torch.pipeline.rx import RxSessionState, rx_block
+    from m17_sdr_tpu_torch.tools import bench_debug as bd
+    from m17_sdr_tpu_torch.tools.kernel_validate import session_blocks
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    med = {}
+    with tempfile.TemporaryDirectory() as td:
+        path = str(Path(td) / "blocks.npy")
+        out, _, _ = run_module(TOOLS + "bench_debug", "gen", str(B), "--path", path)
+        print(f"phase 27 bench_debug gen: {out.strip()}", flush=True)
+        data = np.load(path)
+        if not np.array_equal(data, session_blocks(B, dev)[0].cpu().numpy()):
+            fail("bench_debug gen: the saved blocks are not the validation session's")
+        for mode in ("run", "noise"):
+            t0 = time.perf_counter()
+            out, _, launches = run_module(TOOLS + "bench_debug", mode, "--path", path)
+            record_launches(f"bench_debug {mode}", launches, paths)
+            print(f"phase 27 bench_debug {mode} ({B} channels x {data.shape[1]} blocks): "
+                  + " | ".join(out.strip().splitlines()) + f"; launches {launches}; "
+                  f"{time.perf_counter() - t0:.1f} s wall with the process start", flush=True)
+        for mode, x in (("run", data), ("noise", bd.noise(data.shape))):
+            res = bd.run(x, dev)
+            med[mode] = float(np.median(res.times_ms))
+            t0 = time.perf_counter()
+            st_cpu = RxSessionState.init(QG_SLICE, "cpu")
+            for i in range(x.shape[1]):
+                out_cpu, st_cpu = rx_block(torch.as_tensor(x[:QG_SLICE, i]), st_cpu)
+            t_cpu = time.perf_counter() - t0
+            what = f"bench_debug {mode} channels 0-{QG_SLICE - 1}"
+            s, d, field = max(
+                match_fields(what, ((n, getattr(res.out, n)[:QG_SLICE], getattr(out_cpu, n))
+                                    for n in out_cpu._fields)),
+                match_fields(f"{what} final state",
+                             ((n, a[:QG_SLICE], b) for (n, a), (_, b)
+                              in zip(flatten_state(res.state), flatten_state(st_cpu)))))
+            print(f"phase 27 bench_debug {mode} here: median {med[mode]:.2f} ms a block "
+                  f"({int(res.out.locked.sum())} of {B} channels locked at the end); channels "
+                  f"0-{QG_SLICE - 1}, the last output and the final state, equal to a plain CPU "
+                  f"chain from a fresh state ({t_cpu:.1f} s); the float difference nearest its "
+                  f"bound {d:.3g} in {field or '-'}, {s:.3g} of the bound (rtol {QG_RTOL:g} "
+                  f"atol {QG_ATOL:g})", flush=True)
+    print(f"phase 27 bench_debug: rx_block one block a call, fenced, median {med['run']:.2f} "
+          f"ms a block on the signal and {med['noise']:.2f} on noise (noise/signal "
+          f"{med['noise'] / med['run']:.3f}), beside phase 20's rx_kernel "
+          f"{rx_kernel['ms_per_block_min']}/{rx_kernel['ms_per_block_med']} (min/med, bench "
+          f"mix); {time.perf_counter() - t_phase:.1f} s wall; {card}; clocks.sm, power.draw, "
+          f"power.limit: {smi('clocks.sm,power.draw,power.limit')}", flush=True)
 
 def check_stream(b: int, rate: int, chunk_blocks: int | None, noise: list, dev) -> None:
     """One card session of STREAM_CHECK_BLOCKS noise blocks through the

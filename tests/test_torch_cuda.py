@@ -123,10 +123,11 @@ def test_kernel_wrappers_check_inputs(cuda):   # noqa: F811
 
 
 @pytest.mark.parametrize("n", [1, 15, 17, 12289])
-@pytest.mark.parametrize("steps", [244, 148, 210, 205])
+@pytest.mark.parametrize("steps", [244, 148, 210, 205, 201])
 def test_viterbi_kernel_ragged_batches(cuda, steps, n):   # noqa: F811
     """Trellis counts that leave the last block of 16 part empty, down to
-    one trellis, with erasures: bits and metric equal."""
+    one trellis, with erasures: bits and metric equal.  T=201 is the
+    self-test's length (tools/cuda_selftest.py), on no main path."""
     rng = np.random.default_rng(steps * 100003 + n)
     soft = rng.normal(size=(n, 2 * steps)).astype(np.float32)
     soft[:, 5::12] = 0.0
@@ -301,3 +302,23 @@ def test_streaming_rx_kernel_path_matches_plain(cuda):   # noqa: F811
     for k, v in flat_s.items():
         np.testing.assert_array_equal(flat_k[k], v, err_msg=k)
         np.testing.assert_array_equal(flat_r[k], v, err_msg=k)
+
+
+def test_selftest_and_validation_gate_pass_on_the_card(cuda, capsys):   # noqa: F811
+    """The self-test (both decoders on the card) and the acceptance gate at
+    B=64 (its kernel leg on the card): both pass, and the gate's kernel leg
+    launches both kernels."""
+    import json
+
+    from m17_sdr_tpu_torch.tools import cuda_selftest, kernel_validate
+
+    before = _build.VITERBI.launches
+    assert cuda_selftest.main([]) == 0
+    assert _build.VITERBI.launches == before + 12
+    doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (doc["platform"], doc["bit_mismatches"]) == ("cuda", 0)
+    before = [k.launches for k in _build.KERNELS]
+    assert kernel_validate.main(["--batch", "64"]) == 0
+    assert all(k.launches > n for k, n in zip(_build.KERNELS, before))
+    doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert doc["kernel"] == doc["plain"] == {"frames": 512, "byte_errors": 0}
