@@ -44,6 +44,7 @@ from ..spec.constants import (
     TIMING_THRESH_LOCKED,
     TIMING_THRESH_UNLOCKED,
 )
+from ..trace import span
 from .sync import locked_pass, sync_check, unlocked_pass
 
 # flags word per step (the layout of m17_sdr_tpu.frame.receiver_pallas)
@@ -334,11 +335,19 @@ def receive_block(samples: torch.Tensor, state: ReceiverState,
     on the kernel for CUDA tensors and on the plain version for CPU
     tensors, unless ``use_kernel`` says otherwise.
     """
-    b, s2 = samples.shape
-    dev = samples.device
     scan = receiver_scan_cuda if _build.use_kernel_for(samples, use_kernel) else receiver_scan_ref
-    slot_vals, flags, state2 = scan(samples, state)
+    with span("scan"):
+        slot_vals, flags, state2 = scan(samples, state)
+    with span("compaction"):
+        return _compact(slot_vals, flags, state2)
 
+
+def _compact(slot_vals: torch.Tensor, flags: torch.Tensor,
+             state2: ReceiverState) -> tuple[BlockEvents, ReceiverState]:
+    """The scan's [B, S2] slot values and flags -> BlockEvents, and the
+    carry with the rolled symbol history."""
+    b, s2 = flags.shape
+    dev = flags.device
     slot_valids = (flags & F_VALID) != 0
     frame_done = (flags & F_DONE) != 0
     parse = (flags & F_PARSE) != 0

@@ -22,6 +22,7 @@ from ..frame import rx_frames
 from ..frame.receiver import ReceiverState, receive_block
 from ..spec import crc
 from ..spec.constants import FT_BERT, FT_LINK, FT_PACKET, FT_STREAM, LICH_CHUNKS, LSF_BYTES
+from ..trace import count, span
 
 STREAM_QUALITY_MIN = 0.9    # minimum normalized Viterbi confidence to route voice
 STREAM_FN_WINDOW = 16       # a routed FN must advance 1..16 past the anchor
@@ -102,30 +103,57 @@ def rx_block(iq: torch.Tensor, state: RxSessionState, afc_enabled: bool = False,
     equalizer per channel when the eye closes).  Returns
     (RxBlockOutput, new RxSessionState).
     """
-    soft2x, dc_offset, fe_state = rx_front_end(
-        iq, state.frontend, in_frame=state.receiver.flock, afc_enabled=afc_enabled)
-    return _decode_soft(soft2x, dc_offset, fe_state, state,
-                        equalize=equalize, use_kernel=use_kernel)
+    with span("rx_block"):
+        with span("front_end"):
+            soft2x, dc_offset, fe_state = rx_front_end(
+                iq, state.frontend, in_frame=state.receiver.flock, afc_enabled=afc_enabled)
+        return _decode_soft(soft2x, dc_offset, fe_state, state,
+                            equalize=equalize, use_kernel=use_kernel)
 
 
 def rx_block_soft(soft2x: torch.Tensor, state: RxSessionState, equalize=False,
                   use_kernel: bool | None = None):
     """Process one [B, S2] block of 2-samples/symbol soft samples, without
     the front end."""
-    dc = torch.zeros(soft2x.shape[0], dtype=torch.float32, device=soft2x.device)
-    return _decode_soft(soft2x, dc, state.frontend, state,
-                        equalize=equalize, use_kernel=use_kernel)
+    with span("rx_block"):
+        with span("front_end"):
+            dc = torch.zeros(soft2x.shape[0], dtype=torch.float32, device=soft2x.device)
+        return _decode_soft(soft2x, dc, state.frontend, state,
+                            equalize=equalize, use_kernel=use_kernel)
 
 
 def _decode_soft(soft2x, dc_offset, fe_state, state: RxSessionState,
                  equalize=False, use_kernel: bool | None = None):
     """Timing/framer scan, equalizer, typed decode and session update."""
     b = soft2x.shape[0]
-    dev = soft2x.device
-
     events, rx_state = receive_block(soft2x, state.receiver, use_kernel=use_kernel)
     f = events.frames.shape[1]
 
+    frames_sym, eq_c = events.frames, state.eq.c
+    eye_est, eq_armed = state.eye_est, state.eq_armed
+    if equalize in (True, "on", "auto"):
+        with span("equalize"):
+            frames_sym, eq_c, eye_est, eq_armed = _equalize(events, state, equalize)
+    eq_state = state.eq._replace(c=eq_c)
+
+    # ---- decode every frame slot through every typed path
+    with span("demap"):
+        soft = rx_frames.demap_frame(frames_sym.reshape(b * f, -1))
+    with span("decode.lsf"):
+        lsf = rx_frames.decode_lsf(soft, use_kernel)
+    with span("decode.stream"):
+        stream = rx_frames.decode_stream(soft, use_kernel)
+    with span("decode.packet"):
+        packet = rx_frames.decode_packet(soft, use_kernel)
+    with span("decode.bert"):
+        bert = rx_frames.decode_bert(soft, use_kernel)
+    with span("session"):
+        return _session(events, rx_state, fe_state, eq_state, eye_est, eq_armed, dc_offset,
+                        state, lsf, stream, packet, bert)
+
+
+def _equalize(events, state: RxSessionState, equalize):
+    """The frame equalizer, "on" or "auto" -> (frames, taps, eye_est, eq_armed)."""
     eq_c = state.eq.c
     frames_sym = events.frames
     valid_f = events.frame_valid & events.frame_parse            # [B, F]
@@ -163,16 +191,21 @@ def _decode_soft(soft2x, dc_offset, fe_state, state: RxSessionState,
         # device->host read of the condition on every block.
         out, eq_c = equalize_frames(frames_sym, eq_c, update=valid_f & eq_armed[:, None])
         frames_sym = torch.where(eq_armed[:, None, None], out, frames_sym)
-    eq_state = state.eq._replace(c=eq_c)
+    return frames_sym, eq_c, eye_est, eq_armed
 
-    # ---- decode every frame slot through every typed path
-    soft = rx_frames.demap_frame(frames_sym.reshape(b * f, -1))
-    lsf = rx_frames.decode_lsf(soft, use_kernel)
-    stream = rx_frames.decode_stream(soft, use_kernel)
-    packet = rx_frames.decode_packet(soft, use_kernel)
-    bert = rx_frames.decode_bert(soft, use_kernel)
 
+def _session(events, rx_state, fe_state, eq_state, eye_est, eq_armed, dc_offset,
+             state: RxSessionState, lsf, stream, packet, bert):
+    """The session layer over the typed decodes of the F slots: selection
+    by frame type, LICH reassembly, FN continuity, gates, counters."""
+    b, f = events.frame_valid.shape
+    dev = events.frame_valid.device
     use = events.frame_valid & events.frame_parse
+    # every slot went through all four typed decodes; ``use`` of them
+    # held a parsed frame, each decoded by its own type's path
+    n_use = use.sum(dim=-1, dtype=torch.int32)
+    count("decode.slots", 4 * b * f)
+    count("decode.frames", n_use)
     is_lsf = use & (events.frame_type == FT_LINK)
     is_stream = use & (events.frame_type == FT_STREAM)
     is_packet = use & (events.frame_type == FT_PACKET)
@@ -238,7 +271,7 @@ def _decode_soft(soft2x, dc_offset, fe_state, state: RxSessionState,
 
     # AOS resets the per-session counters
     golay_total = torch.where(events.aos, 0, state.golay_errors) + golay_blk
-    n_frames = torch.where(events.aos, 0, state.n_frames) + use.sum(dim=-1, dtype=torch.int32)
+    n_frames = torch.where(events.aos, 0, state.n_frames) + n_use
 
     out = RxBlockOutput(
         stream_valid=is_stream,

@@ -50,11 +50,17 @@ Derived:
 ``batch`` defaults to 4096.  ``--device`` defaults to the card and exits
 non-zero without one.  ``--trace`` writes a ``torch.profiler`` Chrome
 trace of one session of ``rx_block`` into DIR (default ``m17_trace``).
+The trace shows the receiver's stage ranges (``m17.rx_block`` and, inside
+it, ``m17.front_end``, ``m17.scan``, ``m17.compaction``, ``m17.equalize``,
+``m17.demap``, ``m17.decode.lsf|stream|packet|bert``, ``m17.session``;
+``m17_sdr_tpu_torch.trace``) on the host thread, and the tool prints the
+traced session's device time by stage (``stage_split``) to stderr.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import sys
 import time
@@ -65,6 +71,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .. import trace as stage_trace
 from .._util import fence
 from ..dsp.discriminator import RxFrontEndState, rx_front_end
 from ..fec.viterbi import viterbi_decode
@@ -287,9 +294,76 @@ def document(times: dict, batch: int, nblk: int, iters: int, reps: int,
     return doc
 
 
-def trace(inputs: Inputs, device, out_dir) -> Path:
+def _innermost(ranges: list) -> tuple[list, list]:
+    """Nested host ranges [(start, end, name)] of one thread -> the times at
+    which the innermost open range changes, and its name from each time on
+    (None where no range is open)."""
+    times, names, stack = [], [], []
+
+    def close(upto):
+        while stack and stack[-1][1] <= upto:
+            end = stack.pop()[1]
+            times.append(end)
+            names.append(stack[-1][2] if stack else None)
+
+    for r in sorted(ranges, key=lambda r: (r[0], -r[1])):
+        close(r[0])
+        stack.append(r)
+        times.append(r[0])
+        names.append(r[2])
+    close(float("inf"))
+    return times, names
+
+
+def stage_split(events) -> tuple[dict, list]:
+    """A profile's device time by receiver stage.
+
+    ``events`` are the profiler's raw events
+    (``prof.profiler.kineto_results.events()``).  Each device operation
+    (kernel, copy or set, not the device-side copy of a user range) is
+    tied to the host call that launched it by the profiler's correlation
+    id, and booked to the innermost stage range (``m17.<stage>``) open on
+    the launching thread at the launch; None holds those launched outside
+    every stage, "untied" those with no launch in the trace.  Returns
+    ({stage: device ns}, [launch-to-start lag ns of every tied operation]).
+    """
+    ranges: dict = {}
+    launches: dict = {}
+    ops = []
+    for ev in events:
+        name = ev.name()
+        if not str(ev.device_type()).endswith("CPU"):
+            if not ev.is_user_annotation():   # a user range's device-side copy
+                ops.append(ev)
+        elif name.startswith(stage_trace.PREFIX):
+            start = ev.start_ns()
+            ranges.setdefault(ev.start_thread_id(), []).append(
+                (start, start + ev.duration_ns(), name[len(stage_trace.PREFIX):]))
+        elif name.startswith("cu"):           # the CUDA API calls (launches, copies)
+            launches[ev.correlation_id()] = (ev.start_ns(), ev.start_thread_id())
+    threads = {tid: _innermost(r) for tid, r in ranges.items()}
+    split: dict = {}
+    lags = []
+    for op in ops:
+        launch = launches.get(op.correlation_id())
+        if launch is None:
+            stage = "untied"
+        else:
+            t, tid = launch
+            times, names = threads.get(tid, ([], []))
+            i = bisect.bisect_right(times, t) - 1
+            stage = names[i] if i >= 0 else None
+            lags.append(op.start_ns() - t)
+        split[stage] = split.get(stage, 0) + op.duration_ns()
+    return split, lags
+
+
+def trace(inputs: Inputs, device, out_dir) -> tuple[Path, dict]:
     """A ``torch.profiler`` Chrome trace of one session of ``rx_block``
-    (one block a call) into ``out_dir``; returns the file's path."""
+    (one block a call) into ``out_dir``: the file's path, and the
+    session's device ms by stage (``stage_split``) with the launch-to-start
+    lags' median and largest, and the count of operations that started on
+    the card before their launch on the host."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     device = torch.device(device)
@@ -301,7 +375,13 @@ def trace(inputs: Inputs, device, out_dir) -> Path:
     path = Path(out_dir) / "rx_block_trace.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
-    return path
+    split, lags = stage_split(prof.profiler.kineto_results.events())
+    lags.sort()
+    doc = {"stage_device_ms": {str(k): v / 1e6 for k, v in split.items()},
+           "launch_to_start_ms": {"median": lags[len(lags) // 2] / 1e6 if lags else None,
+                                  "max": lags[-1] / 1e6 if lags else None},
+           "started_before_launch": sum(1 for x in lags if x < 0)}
+    return path, doc
 
 
 def main(argv=None) -> int:
@@ -321,7 +401,9 @@ def main(argv=None) -> int:
     doc = profile(args.batch, device, ITERS, REPS, inputs=inp)
     print(json.dumps(doc, indent=1))
     if args.trace:
-        print(f"profiler trace written to {trace(inp, device, args.trace)}", file=sys.stderr)
+        path, split = trace(inp, device, args.trace)
+        print(f"profiler trace written to {path}; by stage: {json.dumps(split)}",
+              file=sys.stderr)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(doc, f, indent=1)
