@@ -16,9 +16,14 @@ Needs one CUDA card; exits non-zero without one.  Phases, each printed:
    values, flags and every state field must be equal; times per block,
    and the kernel's median over 30 launches on one fixed mid-session
    block and state, with its bound, share, clocks and power;
+3b. K3, the front-end kernel, alone against its plain version on int16
+   noise at the bench's whole-session call [4096, 2, 24960] and at one
+   block of 16384 channels [16384, 2, 1920], after a block that seeds the
+   DC estimate on half the channels: dec, offset and every state field
+   must be equal; median device times of both, the bound and the share;
 4. the main path, ``rx_stream`` at B=4096 and T=1920 over the same mix,
    on the kernels and on the plain versions: every output field and the
-   final state must be equal, and both kernels must have been launched
+   final state must be equal, and every kernel must have been launched
    by the kernel run; times per block; then device time, launches and the
    top kernels per block under torch.profiler;
 5. the main path against the JAX package's recorded decode of the
@@ -238,6 +243,8 @@ F32_OPS_PER_S = 67e12
 K1_OPS_PER_STEP = 68     # 16 states x (2 adds, compare, select) + 4 branch adds
 K2_OPS_PER_CLK = 122     # 2 filters x (31 products + 30 sums) at a clk step
 K2_BLOCK = NBLK // 2     # the mid-session block K2 is timed on
+K3_SHAPES = ((4096, 24960), (16384, 1920))   # K3's timed calls: (channels, samples)
+K3_OPS_PER_SAMPLE = 20   # scale, |iq|, limiter, discriminator, the two sums
 PROFILE_BLOCKS = 4       # steady-state blocks of the main path under the profiler
 TX_LSB = 20              # port TX vs the JAX record, int16 LSB (3e-5 each): 6e-4
 SWEEP_SEED = 0           # the BER sweep's noise generator
@@ -518,6 +525,8 @@ def main() -> int:
           f"{k2_bound / k2_fixed:.3f}; {card}; clocks.sm, power.draw, power.limit: "
           f"{smi('clocks.sm,power.draw,power.limit')}", flush=True)
 
+    front_end_k3(dev, report, card)
+
     # ---- phase 4: the main path, kernels vs plain
     legs = {}
     for leg, use_kernel in (("kernel", None), ("plain", False)):
@@ -591,7 +600,10 @@ def main() -> int:
                            "m17_sdr_tpu/fec/viterbi_pallas.py:58", _build.VITERBI),
                "receiver_scan": ("m17_sdr_tpu_torch/csrc/receiver_scan.cu",
                                  "m17_sdr_tpu/frame/receiver_pallas.py:73",
-                                 _build.RECEIVER_SCAN)}
+                                 _build.RECEIVER_SCAN),
+               "front_end": ("m17_sdr_tpu_torch/csrc/front_end.cu",
+                             "none: XLA's fusion of m17_sdr_tpu/dsp/discriminator.py",
+                             _build.FRONT_END)}
     launches = {k.symbol: sum(p.get(k.symbol, 0) for p in paths.values())
                 for k in _build.KERNELS}
     kernels = []
@@ -615,6 +627,38 @@ def main() -> int:
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0
+
+
+def front_end_k3(dev, report: dict, card: str) -> None:
+    """Phase 3b: K3 alone against the plain front end at K3_SHAPES."""
+    from m17_sdr_tpu_torch.dsp.discriminator import RxFrontEndState, rx_front_end
+
+    gen = torch.Generator(dev).manual_seed(3)
+    for b, t in K3_SHAPES:
+        iq = (torch.randn((b, 2, t), generator=gen, device=dev) * 10000.0).clamp_(
+            -32768, 32767).to(torch.int16)
+        inf = torch.arange(b, device=dev) % 2 == 0
+        st = rx_front_end(iq, RxFrontEndState.init(b, dev), inf)[2]
+        got = rx_front_end(iq, st, inf)
+        want = rx_front_end(iq, st, inf, use_kernel=False)
+        for name, a, r in (("dec", got[0], want[0]), ("offset", got[1], want[1]),
+                           *((f"state.{f}", getattr(got[2], f), getattr(want[2], f))
+                             for f in RxFrontEndState._fields)):
+            if not torch.equal(a, r):
+                fail(f"K3 [{b}, 2, {t}]: " + first_diff(name, a, r, False))
+        ms = cuda_ms(lambda: rx_front_end(iq, st, inf), 20)
+        plain = cuda_ms(lambda: rx_front_end(iq, st, inf, use_kernel=False), 5)
+        # int16 in, dec, offset and in_frame, the state in and out
+        nbytes = iq.nbytes + b * (t // 5) * 4 + b * 4 + b + 2 * b * (16 + 5 * 4 + 1)
+        b_ms, by = bound(nbytes, K3_OPS_PER_SAMPLE * b * t)
+        if (b, t) == K3_SHAPES[0]:
+            report["front_end"] = dict(ms=ms, plain_ms=plain, max_abs_err=0.0,
+                                       bound_ms=b_ms, bound_by=by)
+        print(f"phase 3b K3 [{b}, 2, {t}] int16: dec, offset and state equal; kernel "
+              f"{ms:.4f} ms, plain {plain:.3f} ms ({plain / ms:.1f}x); bound "
+              f"{b_ms * 1e3:.2f} us ({by}, {nbytes / 1e6:.1f} MB), share {b_ms / ms:.3f}; "
+              f"{card}; clocks.sm, power.draw, power.limit: "
+              f"{smi('clocks.sm,power.draw,power.limit')}", flush=True)
 
 
 def tx_fixture(fx: dict, dev, paths: dict) -> None:
@@ -1339,7 +1383,8 @@ def parity_soft(dev, paths: dict, card: str) -> None:
         t0 = time.perf_counter()
         results[kind] = bp.replay_record(record, (kind,), device=dev)
         walls[kind] = time.perf_counter() - t0
-    got = read_launches("BER parity soft", _build.KERNELS, paths)
+    # soft input: no front end, so no K3
+    got = read_launches("BER parity soft", (_build.VITERBI, _build.RECEIVER_SCAN), paths)
     for kind, pts in results.items():
         for p in pts:
             if not p.equals_recorded_jax():

@@ -113,7 +113,17 @@ RECEIVER_SCAN = CudaKernel("receiver_scan.cu", "m17_receiver_scan",
                            [_P, _L, _L, _P, _L, _L, _P, _P] + [_P] * 14 + [_P] * 14
                            + [_P, _P, _P, _I, _I, _P])
 
-KERNELS = (VITERBI, RECEIVER_SCAN)
+# (iq [B, 2, T], int16 flag, its three element strides, 16-byte-load flag,
+#  in_frame [B] u8, disc_tail [B, 2, 2] f32 and its strides, nco_phase,
+#  afc_delta, rssi, agc_gain, dc_est [B] f32, dc_seeded [B] u8, dec [B, T/5]
+#  f32, offset [B] f32, the seven state fields out, partial sums [B * g, 2]
+#  f64 and arrival counters [B] i32 (null when g == 1), b, t, chunks a block
+#  k, blocks a channel g, afc flag, stream) -- see csrc/front_end.cu
+FRONT_END = CudaKernel("front_end.cu", "m17_front_end",
+                       [_P, _I, _L, _L, _L, _I, _P, _P, _L, _L, _L] + [_P] * 6
+                       + [_P, _P] + [_P] * 7 + [_P, _P] + [_I] * 5 + [_P])
+
+KERNELS = (VITERBI, RECEIVER_SCAN, FRONT_END)
 
 
 def build_all() -> None:

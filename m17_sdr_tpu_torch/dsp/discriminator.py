@@ -3,17 +3,28 @@ DC removal and decimation by 5, for a [B, 2, T] block.
 
 Port of ``m17_sdr_tpu.dsp.discriminator``; see that module for the
 reasons behind the DC and AFC schemes.  Everything is elementwise over
-the block; the carry is a 2-sample discriminator tail, the AFC NCO
-phase and frequency estimate, the RSSI/AGC meter and the DC estimate.
+the block but two per-channel means; the carry is a 2-sample
+discriminator tail, the AFC NCO phase and frequency estimate, the
+RSSI/AGC meter and the DC estimate.
+
+``rx_front_end`` runs the CUDA kernel K3 (``csrc/front_end.cu``) for
+CUDA tensors and the plain PyTorch version, ``rx_front_end_ref``, for
+CPU tensors; ``use_kernel=False`` is the plain version on any device.
+The two give the same bits on the card: the means add in one fixed
+order (``pairwise_sum``) that the kernel reproduces.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
+from .. import _build
 from ..spec.constants import RX_DECIMATION
 from . import iq as iqmod
 
@@ -74,25 +85,62 @@ def scale_int16(wire: torch.Tensor) -> torch.Tensor:
     return (wire.to(torch.float32) * 3.0e-5).movedim(-1, -2)
 
 
+def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in float64 as a balanced tree of adjacent
+    pairs: the axis zero-padded to a power of two, then pairs, pairs of
+    pairs, and so on (padding by one zero at each odd level adds the
+    same).  A fixed order, which K3 reproduces, so the sum does not depend
+    on how a device splits the reduction.  Float64, because a float32 tree
+    is a unit in the last place away from the correctly rounded mean often
+    enough that the AFC loop carries the difference past the JAX
+    package's tolerance."""
+    x = x.double()
+    while x.shape[-1] > 1:
+        if x.shape[-1] % 2:
+            x = F.pad(x, (0, 1))
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def pairwise_mean(x: torch.Tensor) -> torch.Tensor:
+    """``pairwise_sum`` over the last axis divided by its length, a true
+    division in float64 on every device, rounded to float32."""
+    s = pairwise_sum(x)
+    return (s / torch.full_like(s, x.shape[-1])).float()
+
+
 def rx_front_end(
     iq2: torch.Tensor,
     state: RxFrontEndState,
     in_frame: torch.Tensor,
     afc_enabled: bool = False,
+    use_kernel: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, RxFrontEndState]:
-    """Front end for one [B, 2, T] block (T % 5 == 0), int16 or float32.
+    """Front end for one [B, 2, T] block (T a positive multiple of 5),
+    int16 or float32.
 
     Returns (soft samples [B, T//5] at 2 samples/symbol, DC offset [B],
     new state).  ``in_frame`` [B] bool gates the AFC integrator, which
-    resets out of frame; with AFC off the estimate is dropped.
+    resets out of frame; with AFC off the estimate is dropped.  K3 runs
+    for CUDA tensors, the plain version for CPU tensors, unless
+    ``use_kernel`` says otherwise (see ``_build.use_kernel_for``).
     """
     t = iq2.shape[-1]
-    if t % RX_DECIMATION:
-        raise ValueError(f"block length {t} is not a multiple of {RX_DECIMATION}")
+    if t % RX_DECIMATION or t == 0:
+        raise ValueError(f"block length {t} is not a positive multiple of {RX_DECIMATION}")
+    if _build.use_kernel_for(iq2, use_kernel):
+        return rx_front_end_cuda(iq2, state, in_frame, afc_enabled)
+    return rx_front_end_ref(iq2, state, in_frame, afc_enabled)
+
+
+def rx_front_end_ref(iq2: torch.Tensor, state: RxFrontEndState, in_frame: torch.Tensor,
+                     afc_enabled: bool = False):
+    """The plain PyTorch front end, on any device: ``rx_front_end``'s
+    contract."""
     if iq2.dtype == torch.int16:
         iq2 = iq2.to(torch.float32) * 3.0e-5
 
-    level = iqmod.magnitude(iq2).mean(dim=-1)
+    level = pairwise_mean(iqmod.magnitude(iq2))
     rssi = torch.where(state.rssi > 0.0,
                        RSSI_SMOOTH * state.rssi + (1.0 - RSSI_SMOOTH) * level,
                        level)
@@ -114,7 +162,7 @@ def rx_front_end(
     z1 = zh[..., :-2]    # z[n-2]
     u = (iqmod.conj_mul_im(z0, z) + iqmod.conj_mul_im(z1, z0)) * 0.5
 
-    offset = u.mean(dim=-1)
+    offset = pairwise_mean(u)
 
     # unlocked: subtract the block mean and reseed; locked: subtract the
     # carried estimate and update it slowly
@@ -137,3 +185,93 @@ def rx_front_end(
         dc_est=dc_est, dc_seeded=torch.ones_like(state.dc_seeded),
     )
     return dec, offset, new_state
+
+
+# K3's launch shape (csrc/front_end.cu): a chunk is the samples a thread
+# block takes at a time, 128 threads x 8 consecutive samples
+_CHUNK = 1024
+_MAX_CHUNKS = 32              # chunks a thread block takes at most
+_BLOCKS_WANTED = 4            # thread blocks a streaming multiprocessor, at least
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def front_end_split(b: int, t: int, sms: int) -> tuple[int, int]:
+    """(chunks a thread block, thread blocks a channel) for K3 at [b, 2, t]
+    on a card of ``sms`` multiprocessors.  A channel's chunks go to as few
+    blocks as fill the card ``_BLOCKS_WANTED`` times over; a block's
+    chunks are a power of two, so each block sums one whole subtree of
+    ``pairwise_sum``'s order."""
+    n_chunks = -(-t // _CHUNK)
+    k = min(1 << (n_chunks - 1).bit_length(), _MAX_CHUNKS)
+    while k > 1 and b * -(-n_chunks // k) < _BLOCKS_WANTED * sms:
+        k //= 2
+    return k, -(-n_chunks // k)
+
+
+def rx_front_end_cuda(iq2: torch.Tensor, state: RxFrontEndState, in_frame: torch.Tensor,
+                      afc_enabled: bool = False):
+    """The CUDA kernel K3: ``rx_front_end_ref``'s contract and bits.
+
+    One launch (two where a channel is split over several thread blocks:
+    the blocks' arrival counters are zeroed first).  The input is read
+    through its strides, so slices of a larger tensor need no copy; the
+    outputs and the new state are new contiguous tensors, and the input
+    state is only read.
+    """
+    name = "rx_front_end_cuda"
+    if iq2.dtype not in (torch.int16, torch.float32):
+        raise ValueError(f"{name}: expected int16 or float32 IQ, got {iq2.dtype}")
+    _build.check_cuda_input(name, iq2, iq2.dtype, 3, contiguous=False)
+    b, planes, t = iq2.shape
+    if planes != 2:
+        raise ValueError(f"{name}: expected [B, 2, T] planar IQ, got {tuple(iq2.shape)}")
+    if t % RX_DECIMATION or t == 0:
+        raise ValueError(f"{name}: block length {t} is not a positive multiple of "
+                         f"{RX_DECIMATION}")
+    dev = iq2.device
+    fields = {}
+    for f, x in zip(RxFrontEndState._fields, state):
+        dtype = torch.bool if f == "dc_seeded" else torch.float32
+        ndim = 3 if f == "disc_tail" else 1
+        _build.check_cuda_input(f"{name}: state.{f}", x, dtype, ndim, contiguous=False)
+        want = (b, 2, 2) if f == "disc_tail" else (b,)
+        if tuple(x.shape) != want or x.device != dev:
+            raise ValueError(f"{name}: state.{f} must be {list(want)} on {dev}, "
+                             f"got {tuple(x.shape)} on {x.device}")
+        fields[f] = x if f == "disc_tail" else x.contiguous()
+    _build.check_cuda_input(f"{name}: in_frame", in_frame, torch.bool, 1, contiguous=False)
+    if tuple(in_frame.shape) != (b,) or in_frame.device != dev:
+        raise ValueError(f"{name}: in_frame must be [{b}] on {dev}")
+    in_frame = in_frame.contiguous()
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    nd = t // RX_DECIMATION
+    dec = torch.empty((b, nd), **f32)
+    offset = torch.empty((b,), **f32)
+    out = {f: torch.empty_like(x, memory_format=torch.contiguous_format)
+           for f, x in fields.items()}
+    esize = iq2.element_size()
+    vec = (iq2.stride(2) == 1 and iq2.data_ptr() % 16 == 0
+           and (iq2.stride(0) * esize) % 16 == 0 and (iq2.stride(1) * esize) % 16 == 0)
+    with torch.cuda.device(dev):
+        k, g = front_end_split(b, t, _sm_count(torch.cuda.current_device()))
+        if g > 1:
+            partial = torch.empty((b * g, 2), dtype=torch.float64, device=dev)
+            arrived = torch.zeros((b,), dtype=torch.int32, device=dev)
+            scratch = (partial.data_ptr(), arrived.data_ptr())
+        else:
+            scratch = (None, None)
+        tail = fields["disc_tail"]
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.FRONT_END.launch(
+            iq2.data_ptr(), int(iq2.dtype == torch.int16), *iq2.stride(), int(vec),
+            in_frame.data_ptr(), tail.data_ptr(), *tail.stride(),
+            *(fields[f].data_ptr() for f in RxFrontEndState._fields[1:]),
+            dec.data_ptr(), offset.data_ptr(),
+            *(out[f].data_ptr() for f in RxFrontEndState._fields),
+            *scratch, b, t, k, g, int(afc_enabled), ctypes.c_void_p(stream))
+    return dec, offset, RxFrontEndState(**out)

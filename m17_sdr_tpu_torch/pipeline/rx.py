@@ -5,9 +5,9 @@ scan, the optional frame equalizer, the four typed decodes and the
 session layer (LICH reassembly, routing gates, counters).  See the JAX
 module for the measurements behind the gate constants.
 
-``use_kernel`` selects the CUDA kernels (the receiver scan and the
-Viterbi decoder): None means exactly when the tensors are on CUDA,
-False the plain PyTorch versions on any device.
+``use_kernel`` selects the CUDA kernels (the front end, the receiver
+scan and the Viterbi decoder): None means exactly when the tensors are
+on CUDA, False the plain PyTorch versions on any device.
 """
 
 from __future__ import annotations
@@ -106,7 +106,8 @@ def rx_block(iq: torch.Tensor, state: RxSessionState, afc_enabled: bool = False,
     with span("rx_block"):
         with span("front_end"):
             soft2x, dc_offset, fe_state = rx_front_end(
-                iq, state.frontend, in_frame=state.receiver.flock, afc_enabled=afc_enabled)
+                iq, state.frontend, in_frame=state.receiver.flock, afc_enabled=afc_enabled,
+                use_kernel=use_kernel)
         return _decode_soft(soft2x, dc_offset, fe_state, state,
                             equalize=equalize, use_kernel=use_kernel)
 

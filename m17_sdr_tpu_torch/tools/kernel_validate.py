@@ -8,7 +8,7 @@ planar IQ blocks [batch, nblk, 2, 1920], goes through a chain of
 ``rx_block`` calls (AFC and the equalizer off) from
 ``RxSessionState.init`` twice:
 
-  ``kernel``  on the CUDA kernels (K1 and K2, ``use_kernel=True``);
+  ``kernel``  on the CUDA kernels (K1, K2 and K3, ``use_kernel=True``);
   ``plain``   on their plain PyTorch versions (``use_kernel=False``).
 
 Each leg is scored on the device as the JAX tool scores it: a routed

@@ -16,6 +16,7 @@ from torch_parity import cuda  # noqa: F401  (fixture)
 
 from m17_sdr_tpu_torch import _build
 from m17_sdr_tpu_torch.convert import state_to_numpy
+from m17_sdr_tpu_torch.dsp import discriminator as td
 from m17_sdr_tpu_torch.dsp.discriminator import RxFrontEndState, rx_front_end
 from m17_sdr_tpu_torch.fec import viterbi as tv
 from m17_sdr_tpu_torch.frame import receiver as tr
@@ -120,6 +121,19 @@ def test_kernel_wrappers_check_inputs(cuda):   # noqa: F811
                               st._replace(window=st.window[:, 1:]))
     with pytest.raises(ValueError):
         tr.receiver_scan_cuda(torch.zeros(4, 0, device=cuda), st)
+    fe = RxFrontEndState.init(4, cuda)
+    inf = torch.zeros(4, dtype=torch.bool, device=cuda)
+    iq = torch.zeros(4, 2, 1920, dtype=torch.int16, device=cuda)
+    for bad_iq, bad_st in ((iq.double(), fe), (iq[:, 0], fe), (iq[..., :1918], fe),
+                           (iq[..., :0], fe), (iq[:, :1], fe),
+                           (iq, fe._replace(disc_tail=fe.disc_tail[..., :1])),
+                           (iq, fe._replace(rssi=fe.rssi[:3])),
+                           (iq, fe._replace(dc_seeded=fe.dc_seeded.float())),
+                           (iq, fe._replace(agc_gain=fe.agc_gain.cpu()))):
+        with pytest.raises(ValueError):
+            td.rx_front_end_cuda(bad_iq, bad_st, inf)
+    with pytest.raises(ValueError):
+        td.rx_front_end_cuda(iq, fe, inf[:3])
 
 
 @pytest.mark.parametrize("n", [1, 15, 17, 12289])
@@ -322,3 +336,104 @@ def test_selftest_and_validation_gate_pass_on_the_card(cuda, capsys):   # noqa: 
     assert all(k.launches > n for k, n in zip(_build.KERNELS, before))
     doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert doc["kernel"] == doc["plain"] == {"frames": 512, "byte_errors": 0}
+
+
+def _front_end_case(cuda, b: int, t: int, int16: bool, seed: int):
+    """[b, 2, t] IQ of a tone in noise at levels from silence to past the
+    AGC's upper threshold (both AGC steps, the limiter's floor), and a
+    front-end state with a random tail, NCO, AFC estimate, meter and DC,
+    and dc_seeded both ways."""
+    rng = np.random.default_rng(seed)
+    amp = np.linspace(0.0, 1.3, b)[:, None] if b > 1 else np.array([[0.6]])
+    n = np.arange(t)
+    ph = 2 * np.pi * rng.uniform(-0.02, 0.02, (b, 1)) * n + rng.uniform(0, 6.3, (b, 1))
+    x = np.stack([np.cos(ph), np.sin(ph)], axis=1) * amp[:, None]
+    x = x + 0.05 * rng.normal(size=x.shape)
+    if b > 2:
+        x[0] = 0.0                            # silence: the limiter's floor
+    if int16:
+        x = np.clip(np.round(x / 3.0e-5), -32768, 32767).astype(np.int16)
+    iq = torch.as_tensor(x.astype(np.int16 if int16 else np.float32)).to(cuda)
+    tail = rng.normal(size=(b, 2, 2))
+    tail /= np.linalg.norm(tail, axis=1, keepdims=True)
+    f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32)).to(cuda)   # noqa: E731
+    st = RxFrontEndState(
+        disc_tail=f32(tail), nco_phase=f32(rng.uniform(0, 6.3, b)),
+        afc_delta=f32(rng.uniform(-0.01, 0.01, b)),
+        rssi=f32(np.where(rng.random(b) < 0.3, 0.0, rng.uniform(0.0, 1.2, b))),
+        agc_gain=f32(np.exp2(rng.uniform(-6, 6, b))), dc_est=f32(rng.normal(0, 0.01, b)),
+        dc_seeded=torch.as_tensor(rng.random(b) < 0.5).to(cuda))
+    return iq, st
+
+
+def _in_frame(mode: str, b: int, blk: int, cuda):
+    if mode == "toggling":
+        return (torch.arange(b, device=cuda) + blk) % 2 == 0
+    return torch.full((b,), mode == "always", dtype=torch.bool, device=cuda)
+
+
+def _assert_front_end_equal(got, want, what):
+    (dec_k, off_k, st_k), (dec_r, off_r, st_r) = got, want
+    assert dec_k.shape == dec_r.shape and dec_k.is_contiguous(), what
+    assert torch.equal(dec_k, dec_r), ("dec", what)
+    assert torch.equal(off_k, off_r), ("offset", what)
+    for f in RxFrontEndState._fields:
+        assert torch.equal(getattr(st_k, f), getattr(st_r, f)), (f, what)
+
+
+@pytest.mark.parametrize("afc", [False, True])
+@pytest.mark.parametrize("int16", [True, False])
+@pytest.mark.parametrize("t", [5, 1920, 24960])
+@pytest.mark.parametrize("b", [1, 3, 64])
+def test_front_end_kernel_matches_plain(cuda, b, t, int16, afc):   # noqa: F811
+    """K3 against the plain front end over two chained blocks, with the
+    in_frame gate never, always and toggling: dec, offset and every state
+    field equal; one launch a call."""
+    iq, st0 = _front_end_case(cuda, b, t, int16, seed=b * 7 + t)
+    for mode in ("never", "always", "toggling"):
+        st_k = st_r = st0
+        for blk in range(2):
+            inf = _in_frame(mode, b, blk, cuda)
+            before = _build.FRONT_END.launches
+            got = rx_front_end(iq, st_k, inf, afc_enabled=afc)
+            assert _build.FRONT_END.launches == before + 1
+            want = rx_front_end(iq, st_r, inf, afc_enabled=afc, use_kernel=False)
+            torch.cuda.synchronize()
+            _assert_front_end_equal(got, want, (mode, blk))
+            st_k, st_r = got[2], want[2]
+
+
+@pytest.mark.parametrize("int16", [True, False])
+def test_front_end_kernel_reads_strided_input(cuda, int16):   # noqa: F811
+    """Blocks taken as views: ``rx_stream``'s ``iq_blocks[:, i]``, a slice
+    starting 3 samples into a row (not 16-byte aligned) and interleaved
+    [B, T, 2] wire samples moved to [B, 2, T] (sample stride 2): K3 equals
+    the plain version on each, and leaves its input state as it was."""
+    iq, st = _front_end_case(cuda, 33, 4 * 1920 + 5, int16, seed=5)
+    blocks = iq[..., :4 * 1920].reshape(33, 2, 4, 1920).permute(0, 2, 1, 3).contiguous()
+    kept = [x.clone() for x in st]
+    views = [blocks[:, i] for i in range(4)] + [iq[..., 3:3 + 1920 * 2],
+                                                iq.transpose(1, 2).contiguous().transpose(1, 2)]
+    for i, x in enumerate(views):
+        inf = _in_frame("toggling", 33, i, cuda)
+        got = rx_front_end(x, st, inf, afc_enabled=True)
+        want = rx_front_end(x, st, inf, afc_enabled=True, use_kernel=False)
+        _assert_front_end_equal(got, want, i)
+    assert views[-1].stride(-1) == 2 and views[-2].storage_offset() == 3
+    for a, k in zip(st, kept):
+        assert torch.equal(a, k)
+
+
+def test_front_end_kernel_long_rows(cuda):   # noqa: F811
+    """Channels enough to fill the card, with rows longer than a thread
+    block takes (T = 61440: each row split over blocks, the raw row
+    through dec), and the main path's shape [4096, 2, 24960] (one block a
+    row, the raw row in shared memory): equal to the plain version."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, t, blocks in ((600, 61440, 2), (4096, 24960, 1)):
+        assert td.front_end_split(b, t, sms)[1] == blocks
+        iq, st = _front_end_case(cuda, b, t, True, seed=b)
+        inf = _in_frame("toggling", b, 0, cuda)
+        got = rx_front_end(iq, st, inf)
+        want = rx_front_end(iq, st, inf, use_kernel=False)
+        _assert_front_end_equal(got, want, (b, t))

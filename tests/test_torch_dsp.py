@@ -12,6 +12,7 @@ from m17_sdr_tpu.dsp import discriminator as j_disc
 from m17_sdr_tpu.dsp import equalize as j_eq
 from m17_sdr_tpu_torch.dsp import discriminator as t_disc
 from m17_sdr_tpu_torch.dsp import equalize as t_eq
+from m17_sdr_tpu_torch.dsp import iq as t_iq
 
 torch.set_num_threads(2)
 
@@ -50,6 +51,55 @@ def test_front_end_matches_jax(iq, afc, in_frame, int16):
         assert_same(f"offset {msg}", off_t, off_j, FE_RTOL, FE_ATOL)
         for f in j_disc.RxFrontEndState._fields:
             assert_same(f"{f} {msg}", getattr(st_t, f), getattr(st_j, f), FE_RTOL, FE_ATOL)
+
+
+def _pairwise_f64(x: np.ndarray) -> float:
+    """The front end's summation order, written top-down: the float32
+    summands zero-padded to a power of two, each half summed the same way,
+    the two halves added in float64."""
+    n = 1 << max(0, (len(x) - 1).bit_length())
+    x = np.concatenate([x.astype(np.float64), np.zeros(n - len(x))])
+
+    def tree(lo, hi):
+        return x[lo] if hi - lo == 1 else tree(lo, (lo + hi) // 2) + tree((lo + hi) // 2, hi)
+    return tree(0, n)
+
+
+@pytest.mark.parametrize("int16", [False, True])
+@pytest.mark.parametrize("t", [5, 1920, 24960])
+def test_front_end_means_are_pairwise_sums(iq, t, int16):
+    """The plain front end's level (the meter's first reading) and DC offset
+    equal, bit for bit, float64 pairwise sums in numpy of its float32
+    summands, |iq| and the discriminator output, divided by T and rounded
+    to float32: the order K3 adds in on the card.  (The summands come from
+    the port's own elementwise functions: PyTorch's CPU square root is
+    not numpy's.)"""
+    x = np.tile(iq, (1, 1, -(-t // iq.shape[-1])))[:2, :, :t]
+    if int16:
+        x = np.clip(np.round(x / 3.0e-5), -32768, 32767).astype(np.int16)
+    rng = np.random.default_rng(t)
+    tail = torch.as_tensor(rng.normal(size=(2, 2, 2)).astype(np.float32))
+    st = t_disc.RxFrontEndState.init(2, "cpu")._replace(disc_tail=tail)
+    _, off, new = t_disc.rx_front_end(torch.as_tensor(x), st, torch.zeros(2, dtype=torch.bool))
+
+    iq2 = torch.as_tensor(x).to(torch.float32) * 3.0e-5 if int16 else torch.as_tensor(x)
+    z = t_disc.limit(iq2)
+    zh = torch.cat([tail, z], dim=-1)
+    u = (t_iq.conj_mul_im(zh[..., 1:-1], z) + t_iq.conj_mul_im(zh[..., :-2], zh[..., 1:-1])) * 0.5
+    for name, got, summands in (("level", new.rssi, t_iq.magnitude(iq2)), ("offset", off, u)):
+        for c in range(2):
+            want = np.float32(_pairwise_f64(summands[c].numpy()) / t)
+            assert got[c].numpy().tobytes() == want.tobytes(), (name, c)
+
+
+def test_front_end_kernel_needs_cuda():
+    """K3 takes CUDA tensors only: asked for on the CPU it raises."""
+    st = t_disc.RxFrontEndState.init(2, "cpu")
+    x = torch.zeros((2, 2, 1920), dtype=torch.int16)
+    with pytest.raises(ValueError):
+        t_disc.rx_front_end(x, st, torch.zeros(2, dtype=torch.bool), use_kernel=True)
+    with pytest.raises(ValueError):
+        t_disc.rx_front_end(x[..., :1918], st, torch.zeros(2, dtype=torch.bool))
 
 
 def test_slicer_and_windows_equal_jax():

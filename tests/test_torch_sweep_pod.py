@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from m17_sdr_tpu.pipeline import ber_sweep as jbs
+from m17_sdr_tpu_torch import _build
 from m17_sdr_tpu_torch.tools import sweep_pod as sp
 
 torch.set_num_threads(2)
@@ -60,7 +61,7 @@ def test_document_has_the_jax_keys_and_agrees(run):
             doc["frames_per_channel"]) == (32, 4, 8, 4)
     assert doc["sharded_equals_unsharded"] is True and doc["totals_equal_sums"] is True
     assert doc["sharded_elapsed_s"] > 0 and doc["unsharded_elapsed_s"] > 0
-    zero = {"m17_viterbi_decode": 0, "m17_receiver_scan": 0}
+    zero = {"m17_viterbi_decode": 0, "m17_receiver_scan": 0, "m17_front_end": 0}
     assert doc["kernel_launches"] == {"sharded": zero, "unsharded": zero}
 
 
@@ -109,7 +110,8 @@ def _fake_sweep(monkeypatch, unsharded_frames_delta: int, totals_delta: int):
     counts = {"err": np.zeros(32, np.int32), "bits": np.full(32, 197, np.int32),
               "uns": np.zeros(32, np.int32), "frames": np.ones(32, np.int32)}
     totals = np.array([0, 197 * 32 + totals_delta, 0, 32], np.int64)
-    sharded = dict(counts, totals=totals, elapsed=np.array([1.0]), launches=np.zeros(2))
+    sharded = dict(counts, totals=totals, elapsed=np.array([1.0]),
+                   launches=np.zeros(len(_build.KERNELS)))
     ref = dict(counts, frames=counts["frames"] + unsharded_frames_delta)
     monkeypatch.setattr(sp, "sharded", lambda args, snr: sharded)
     monkeypatch.setattr(sp, "unsharded", lambda args, snr: (ref, 1.0, {}))

@@ -106,7 +106,8 @@ def test_point_recomputes_from_times(points, n):
     assert point["t_nocomm_s"] == times[0].min() and point["t_sharded_s"] == times[1].min()
     assert point["samples_processed"] == n * CH * NBLK * 1920
     assert point["sharding_efficiency"] == round(point["t_nocomm_s"] / point["t_sharded_s"], 4)
-    assert point["kernel_launches"] == {"m17_viterbi_decode": 0, "m17_receiver_scan": 0}
+    assert point["kernel_launches"] == {"m17_viterbi_decode": 0, "m17_receiver_scan": 0,
+                                        "m17_front_end": 0}
 
 
 def test_document_and_world_sizes(points):
