@@ -123,7 +123,12 @@ FRONT_END = CudaKernel("front_end.cu", "m17_front_end",
                        [_P, _I, _L, _L, _L, _I, _P, _P, _L, _L, _L] + [_P] * 6
                        + [_P, _P] + [_P] * 7 + [_P, _P] + [_I] * 5 + [_P])
 
-KERNELS = (VITERBI, RECEIVER_SCAN, FRONT_END)
+# (frames [B, F, 192] f32, valid [B, F] u8, c [B, 5] f32, eye_est [B] f32,
+#  armed [B] u8, frames out, c out, eye_est out, armed out, b, f, auto flag,
+#  stream) -- see csrc/equalize.cu
+EQUALIZE = CudaKernel("equalize.cu", "m17_equalize", [_P] * 9 + [_I, _I, _I, _P])
+
+KERNELS = (VITERBI, RECEIVER_SCAN, FRONT_END, EQUALIZE)
 
 
 def build_all() -> None:

@@ -6,8 +6,9 @@ session layer (LICH reassembly, routing gates, counters).  See the JAX
 module for the measurements behind the gate constants.
 
 ``use_kernel`` selects the CUDA kernels (the front end, the receiver
-scan and the Viterbi decoder): None means exactly when the tensors are
-on CUDA, False the plain PyTorch versions on any device.
+scan, the frame equalizer and the Viterbi decoder): None means exactly
+when the tensors are on CUDA, False the plain PyTorch versions on any
+device.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..dsp.discriminator import RxFrontEndState, rx_front_end
-from ..dsp.equalize import EqState, equalize_frames
+from ..dsp.equalize import EqState, equalize_stage
 from ..frame import rx_frames
 from ..frame.receiver import ReceiverState, receive_block
 from ..spec import crc
@@ -28,10 +29,6 @@ STREAM_QUALITY_MIN = 0.9    # minimum normalized Viterbi confidence to route voi
 STREAM_FN_WINDOW = 16       # a routed FN must advance 1..16 past the anchor
 # "no routed frame yet": the JAX package's uint32 sentinel, held in int64
 _FN_NONE = 0xFFFFFFFF
-
-EYE_ARM = 0.155             # eye-closure statistic that arms the equalizer
-EYE_DISARM = 0.135
-EYE_SMOOTH = 0.5
 
 
 class RxSessionState(NamedTuple):
@@ -134,7 +131,8 @@ def _decode_soft(soft2x, dc_offset, fe_state, state: RxSessionState,
     eye_est, eq_armed = state.eye_est, state.eq_armed
     if equalize in (True, "on", "auto"):
         with span("equalize"):
-            frames_sym, eq_c, eye_est, eq_armed = _equalize(events, state, equalize)
+            frames_sym, eq_c, eye_est, eq_armed = _equalize(events, state, equalize,
+                                                            use_kernel)
     eq_state = state.eq._replace(c=eq_c)
 
     # ---- decode every frame slot through every typed path
@@ -153,46 +151,25 @@ def _decode_soft(soft2x, dc_offset, fe_state, state: RxSessionState,
                         state, lsf, stream, packet, bert)
 
 
-def _equalize(events, state: RxSessionState, equalize):
-    """The frame equalizer, "on" or "auto" -> (frames, taps, eye_est, eq_armed)."""
-    eq_c = state.eq.c
-    frames_sym = events.frames
+def _equalize(events, state: RxSessionState, equalize, use_kernel):
+    """The frame equalizer, "on" or "auto" -> (frames, taps, eye_est, eq_armed).
+
+    The JAX package runs the "auto" stage under lax.cond(any(eq_armed)).
+    Here it always runs, masked by eq_armed: the same outputs (unarmed
+    channels keep their frames and taps) without a device->host read of
+    the condition on every block."""
+    b, f = events.frame_valid.shape
     valid_f = events.frame_valid & events.frame_parse            # [B, F]
-    eye_est = state.eye_est
-    eq_armed = state.eq_armed
-    if equalize in (True, "on"):
-        frames_sym, eq_c = equalize_frames(frames_sym, eq_c, update=valid_f)
-    elif equalize == "auto":
-        # eye-closure statistic of the raw symbols, in demap units
-        sync_mag = frames_sym[..., :8].abs().mean(dim=-1)
-        cor = 1.0 / torch.clamp(sync_mag, min=1e-9)
-        mag = frames_sym[..., 8:].abs() * cor[..., None]
-        disp = torch.minimum((mag - 1.0 / 3.0).abs(), (mag - 1.0).abs())
-        d_frame = disp.mean(dim=-1)                              # [B, F]
-        # signal-bearing frames only (junk frames after a session look
-        # like heavy ISI but carry no signal)
-        lvl = frames_sym.abs().mean(dim=-1)
-        sig_f = valid_f & (lvl > 0.15)
-        nsig = sig_f.sum(dim=-1)
-        zero = torch.zeros_like(d_frame)
-        d_mean = torch.where(sig_f, d_frame, zero).sum(dim=-1) / torch.clamp(nsig, min=1)
-        eye_est = torch.where(
-            nsig > 0,
-            torch.where(state.eye_est > 0.0,
-                        EYE_SMOOTH * state.eye_est + (1.0 - EYE_SMOOTH) * d_mean,
-                        d_mean),
-            state.eye_est)
-        # arm on the worst frame now, disarm on the smoothed estimate
-        d_now = torch.where(sig_f, d_frame, zero).amax(dim=-1)
-        eq_armed = torch.where(torch.maximum(eye_est, d_now) > EYE_ARM, True,
-                               torch.where(eye_est < EYE_DISARM, False, state.eq_armed))
-        # The JAX package runs this stage under lax.cond(any(eq_armed)).
-        # Here it always runs, masked by eq_armed: the same outputs
-        # (unarmed channels keep their frames and taps) without a
-        # device->host read of the condition on every block.
-        out, eq_c = equalize_frames(frames_sym, eq_c, update=valid_f & eq_armed[:, None])
-        frames_sym = torch.where(eq_armed[:, None, None], out, frames_sym)
-    return frames_sym, eq_c, eye_est, eq_armed
+    auto = equalize == "auto"
+    out = equalize_stage(events.frames, valid_f, state.eq.c, state.eye_est, state.eq_armed,
+                         auto=auto, use_kernel=use_kernel)
+    # slots entering the stage, and the valid slots of armed channels
+    # (every channel when the stage is on), whose taps adapt; the second
+    # is computed when the counters are read, outside any traced window
+    count("equalize.slots", b * f)
+    armed = out[3]
+    count("equalize.armed", (lambda: valid_f & armed[:, None]) if auto else valid_f)
+    return out
 
 
 def _session(events, rx_state, fe_state, eq_state, eye_est, eq_armed, dc_offset,

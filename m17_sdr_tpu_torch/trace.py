@@ -15,9 +15,10 @@ recorded at function scope, not as a user annotation, so the profiler
 makes no device-side copy of it: the trace's device lane holds the
 receiver's own kernels, copies and sets alone.
 
-A counter keeps each value by reference (a host int, or a device tensor
-the receiver computes anyway) and sums them when ``counters()`` is read,
-so counting adds no launch and no host read to the receiver.
+A counter keeps each value by reference (a host int, a device tensor
+the receiver computes anyway, or a function that computes one from such
+tensors) and sums them when ``counters()`` is read, so counting adds no
+launch and no host read to the receiver.
 """
 
 from __future__ import annotations
@@ -41,16 +42,22 @@ def span(name: str):
 
 
 def count(name: str, value) -> None:
-    """Add ``value`` (an int, or an integer tensor summed over all its
-    elements) to the counter ``name`` while a profiler records."""
+    """Add ``value`` (an int, an integer tensor summed over all its
+    elements, or a function of no arguments returning either, called when
+    the counters are read) to the counter ``name`` while a profiler
+    records."""
     if torch._C._autograd._profiler_enabled():
         _counts.setdefault(name, []).append(value)
 
 
+def _total(v) -> int:
+    v = v() if callable(v) else v
+    return int(v.sum()) if isinstance(v, torch.Tensor) else int(v)
+
+
 def counters() -> dict[str, int]:
     """Each counter's total since the last ``reset_counters()``."""
-    return {name: sum(int(v.sum()) if isinstance(v, torch.Tensor) else int(v) for v in vals)
-            for name, vals in _counts.items()}
+    return {name: sum(_total(v) for v in vals) for name, vals in _counts.items()}
 
 
 def reset_counters() -> None:

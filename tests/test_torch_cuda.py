@@ -12,11 +12,12 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
-from torch_parity import cuda  # noqa: F401  (fixture)
+from torch_parity import cuda, isi_smear  # noqa: F401  (fixture)
 
 from m17_sdr_tpu_torch import _build
 from m17_sdr_tpu_torch.convert import state_to_numpy
 from m17_sdr_tpu_torch.dsp import discriminator as td
+from m17_sdr_tpu_torch.dsp import equalize as teq
 from m17_sdr_tpu_torch.dsp.discriminator import RxFrontEndState, rx_front_end
 from m17_sdr_tpu_torch.fec import viterbi as tv
 from m17_sdr_tpu_torch.frame import receiver as tr
@@ -26,6 +27,8 @@ from m17_sdr_tpu_torch.pipeline.rx import RxSessionState
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
 S2 = 384
+# the kernels of every receive path; K4 runs only with the equalizer on or auto
+RX_KERNELS = (_build.VITERBI, _build.RECEIVER_SCAN, _build.FRONT_END)
 FIXTURE = _build.CSRC.parent / "data" / "rx_fixture.npz"
 
 
@@ -87,9 +90,11 @@ def test_receiver_scan_kernel_matches_ref_under_drift(cuda):   # noqa: F811
 
 
 def test_rx_stream_kernel_path_matches_plain(cuda):   # noqa: F811
-    """The main path on the kernels and on the plain versions: every
-    output field and every state field equal."""
-    iq = torch.as_tensor(np.tile(_fixture_iq(), (8, 1, 1))).to(cuda)
+    """The main path on the kernels and on the plain versions, on 32 clean
+    channels and 32 whose ISI arms the automatic equalizer mid-session:
+    every output field and every state field equal."""
+    fixture = np.tile(_fixture_iq(), (4, 1, 1))
+    iq = torch.as_tensor(np.concatenate([fixture, isi_smear(fixture)])).to(cuda)
     b, _, t = iq.shape
     blocks = iq.reshape(b, 2, t // 1920, 1920).permute(0, 2, 1, 3).contiguous()
     for k in _build.KERNELS:
@@ -97,11 +102,13 @@ def test_rx_stream_kernel_path_matches_plain(cuda):   # noqa: F811
     out_k, st_k = trx.rx_stream(blocks, RxSessionState.init(b, cuda), afc_enabled=True,
                                 equalize="auto")
     assert all(k.launches > 0 for k in _build.KERNELS)
+    assert _build.EQUALIZE.launches == t // 1920
     out_r, st_r = trx.rx_stream(blocks, RxSessionState.init(b, cuda), afc_enabled=True,
                                 equalize="auto", use_kernel=False)
     for name in out_k._fields:
         assert torch.equal(getattr(out_k, name), getattr(out_r, name)), name
-    assert int(out_k.stream_gate.sum()) == 64 * 8
+    assert int(out_k.stream_gate[:32].sum()) == 32 * 8
+    assert not st_k.eq_armed[:32].any() and st_k.eq_armed[32:].all()
     flat_k, flat_r = state_to_numpy(st_k), state_to_numpy(st_r)
     for k in flat_k:
         np.testing.assert_array_equal(flat_k[k], flat_r[k], err_msg=k)
@@ -243,7 +250,7 @@ def test_loopbacks_kernel_path_match_plain(cuda):   # noqa: F811
                         device=cuda)
     before = [k.launches for k in _build.KERNELS]
     res_k = lb.bert_loopback(b, 4, snr_db=snr, noise=noise, device=cuda)
-    assert all(k.launches > n for k, n in zip(_build.KERNELS, before))
+    assert all(k.launches > n for k, n in zip(RX_KERNELS, before))
     res_r = lb.bert_loopback(b, 4, snr_db=snr, noise=noise, device=cuda, use_kernel=False)
     for a, r in zip(res_k, res_r):
         assert torch.equal(a, r)
@@ -333,7 +340,7 @@ def test_selftest_and_validation_gate_pass_on_the_card(cuda, capsys):   # noqa: 
     assert (doc["platform"], doc["bit_mismatches"]) == ("cuda", 0)
     before = [k.launches for k in _build.KERNELS]
     assert kernel_validate.main(["--batch", "64"]) == 0
-    assert all(k.launches > n for k, n in zip(_build.KERNELS, before))
+    assert all(k.launches > n for k, n in zip(RX_KERNELS, before))
     doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert doc["kernel"] == doc["plain"] == {"frames": 512, "byte_errors": 0}
 
@@ -437,3 +444,88 @@ def test_front_end_kernel_long_rows(cuda):   # noqa: F811
         got = rx_front_end(iq, st, inf)
         want = rx_front_end(iq, st, inf, use_kernel=False)
         _assert_front_end_equal(got, want, (b, t))
+
+
+def _equalize_case(cuda, b: int, f: int, armed_mode: str, seed: int):
+    """Frames [b, f, 192] of 4FSK symbols (sync words +-1, payload +-1/3,
+    +-1, noise), every third channel through a two-ray ISI channel that
+    closes its eye, a fifth of the slots without signal, a random 70 % of
+    them parsed; taps near the identity; eye estimates from 0 to 0.3; the
+    carried armed flag never, always, or alternating between channels, so
+    that some arm and some disarm within the call."""
+    rng = np.random.default_rng(seed)
+    sym = rng.choice([-1.0, -1 / 3, 1 / 3, 1.0], size=(b, f, 192))
+    sym[..., :8] = np.array([1, 1, 1, 1, -1, -1, 1, -1])
+    isi = np.where(np.arange(b) % 3 == 1, 0.55, 0.05)[:, None, None]
+    fr = sym + isi * np.roll(sym, 1, -1) + 0.3 * isi * np.roll(sym, 2, -1)
+    fr = fr + rng.normal(0, 0.03, fr.shape)
+    fr[rng.random((b, f)) < 0.2] *= 0.01
+    f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32)).to(cuda)   # noqa: E731
+    armed = {"never": np.zeros(b, bool), "always": np.ones(b, bool),
+             "toggling": np.arange(b) % 2 == 0}[armed_mode]
+    eye = rng.uniform(0.0, 0.3, b)
+    eye[::4] = 0.0
+    c = np.eye(5)[2] + rng.normal(0, 0.05, (b, 5))
+    return (f32(fr), torch.as_tensor(rng.random((b, f)) < 0.7).to(cuda), f32(c), f32(eye),
+            torch.as_tensor(armed).to(cuda))
+
+
+def _assert_bits_equal(got, want, what):
+    """Float outputs equal bit for bit (NaN where NaN), the rest equal."""
+    for name, g, w in zip(("frames", "taps", "eye_est", "armed"), got, want):
+        assert g.shape == w.shape and g.is_contiguous(), (name, what)
+        if g.dtype == torch.float32:
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32)), (name, what)
+        else:
+            assert torch.equal(g, w), (name, what)
+
+
+@pytest.mark.parametrize("armed", ["never", "always", "toggling"])
+@pytest.mark.parametrize("auto", [True, False])
+@pytest.mark.parametrize("f", [1, 3, 15])
+@pytest.mark.parametrize("b", [1, 3, 64])
+def test_equalize_kernel_matches_plain(cuda, b, f, auto, armed):   # noqa: F811
+    """K4 against the plain stage over two chained calls: frames, taps,
+    eye estimate and armed flag equal bit for bit; one launch a call; the
+    inputs left as they were."""
+    fr, valid, c, eye, arm = _equalize_case(cuda, b, f, armed, seed=b * 31 + f)
+    kept = [x.clone() for x in (fr, valid, c, eye, arm)]
+    st_k = st_r = (c, eye, arm)
+    for call in range(2):
+        before = _build.EQUALIZE.launches
+        got = teq.equalize_stage(fr, valid, *st_k, auto=auto)
+        assert _build.EQUALIZE.launches == before + 1
+        want = teq.equalize_stage(fr, valid, *st_r, auto=auto, use_kernel=False)
+        torch.cuda.synchronize()
+        _assert_bits_equal(got, want, call)
+        st_k, st_r = got[1:], want[1:]
+    for a, k in zip((fr, valid, c, eye, arm), kept):
+        assert torch.equal(a, k)
+    if auto and armed == "toggling" and b == 64:
+        flips = got[3] != arm
+        assert (flips & arm).any() and (flips & ~arm).any()       # some disarm, some arm
+    if not auto:
+        assert torch.equal(got[2], eye) and torch.equal(got[3], arm)
+
+
+def test_equalize_kernel_guards_non_finite_taps(cuda):   # noqa: F811
+    """A NaN symbol in a parsed frame: the solve gives no finite taps, the
+    guard keeps the old ones, and K4 equals the plain stage, NaN for NaN."""
+    fr, valid, c, eye, arm = _equalize_case(cuda, 5, 6, "always", seed=9)
+    fr[1, 2, 17] = float("nan")
+    valid[1, 2] = True
+    for auto in (True, False):
+        got = teq.equalize_stage(fr, valid, c, eye, arm, auto=auto)
+        want = teq.equalize_stage(fr, valid, c, eye, arm, auto=auto, use_kernel=False)
+        _assert_bits_equal(got, want, auto)
+        assert torch.isnan(got[0][1, 2]).any() and torch.isfinite(got[1]).all()
+
+
+def test_rx_block_runs_the_equalizer_as_one_launch(cuda):   # noqa: F811
+    """A whole-session rx_block call with the equalizer on or automatic:
+    exactly one K4 launch, none with it off."""
+    iq = torch.as_tensor(isi_smear(_fixture_iq())).to(cuda)
+    for equalize, launches in ((False, 0), ("on", 1), (True, 1), ("auto", 1)):
+        before = _build.EQUALIZE.launches
+        trx.rx_block(iq, RxSessionState.init(iq.shape[0], cuda), equalize=equalize)
+        assert _build.EQUALIZE.launches == before + launches, equalize

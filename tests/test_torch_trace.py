@@ -123,6 +123,36 @@ def test_decode_counters(call):
     assert out.stream_valid.shape == (B, f)
 
 
+def test_equalize_counters(call):
+    """``equalize.slots`` is B F for a call with the equalizer on or
+    automatic; ``equalize.armed`` counts the parsed slots of armed channels
+    (every channel when on), recomputed from the events and the stage;
+    nothing is counted without a profiler."""
+    from m17_sdr_tpu_torch.dsp.equalize import eye_closure
+
+    blk, state = call
+    # an eye estimate that keeps every channel armed through the call
+    armed = state._replace(eq_armed=torch.ones(B, dtype=torch.bool),
+                           eye_est=torch.full((B,), 0.3))
+    soft, _, _ = rx_front_end(blk, state.frontend, state.receiver.flock)
+    events, _ = receive_block(soft, state.receiver)
+    f = events.frame_valid.shape[1]
+    valid = events.frame_valid & events.frame_parse
+    for st, equalize in ((state, "on"), (state, "auto"), (armed, "auto")):
+        _, _, counters = _profiled(lambda: rx.rx_block(blk, st, equalize=equalize))
+        if equalize == "on":
+            want = int(valid.sum())
+        else:
+            _, now = eye_closure(events.frames, valid, st.eye_est, st.eq_armed)
+            want = int((valid & now[:, None]).sum())
+        assert counters["equalize.slots"] == B * f
+        assert counters["equalize.armed"] == want
+    assert want == int(valid.sum()) > 0
+    trace.reset_counters()
+    rx.rx_block(blk, armed, equalize="auto")
+    assert trace.counters() == {}
+
+
 def test_outputs_equal_with_and_without_profiler(call):
     blk, state = call
     plain = rx.rx_block(blk, state, equalize="auto")

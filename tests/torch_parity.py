@@ -155,6 +155,25 @@ def _two_sessions() -> np.ndarray:
     return iq_blocks(np.concatenate([a, b], axis=-1))
 
 
+def isi_smear(iq: np.ndarray, start: float = 0.35, full: float = 0.5) -> np.ndarray:
+    """int16 [B, 2, T] sessions through a two-ray channel of their
+    instantaneous frequency (tools/quality_gate.py's isi_2ray echoes):
+    gains 0.6 and 0.3 at 5 and 10 samples (half a symbol and one at 48
+    kS/s), ramping in from 0 at ``start`` to full strength at ``full``
+    (shares of T), then FM-modulated again at each channel's mean
+    magnitude and quantized."""
+    z = iq[:, 0].astype(np.float64) + 1j * iq[:, 1]
+    inc = np.zeros(z.shape)
+    inc[:, 1:] = np.angle(z[:, 1:] * np.conj(z[:, :-1]))
+    g = np.clip((np.arange(z.shape[1]) / z.shape[1] - start) / (full - start), 0.0, 1.0)
+    smeared = inc.copy()
+    smeared[:, 5:] += g[5:] * 0.6 * inc[:, :-5]
+    smeared[:, 10:] += g[10:] * 0.3 * inc[:, :-10]
+    ph = np.angle(z[:, :1]) + np.cumsum(smeared, axis=1)
+    x = np.stack([np.cos(ph), np.sin(ph)], axis=1) * np.abs(z).mean(axis=1)[:, None, None]
+    return np.clip(np.round(x), -32768, 32767).astype(np.int16)
+
+
 def to_int16(iq: np.ndarray) -> np.ndarray:
     """The int16 wire format (inverse of the front end's 3e-5 scale)."""
     return np.clip(np.round(iq / 3.0e-5), -32768, 32767).astype(np.int16)
