@@ -21,6 +21,11 @@ Needs one CUDA card; exits non-zero without one.  Phases, each printed:
    block of 16384 channels [16384, 2, 1920], after a block that seeds the
    DC estimate on half the channels: dec, offset and every state field
    must be equal; median device times of both, the bound and the share;
+3c. K5, the compaction kernel, alone against its plain version on K2's
+   slot values and flags for the staggered mix as one whole-session call
+   [4096, 4992] (the benchmark's call), the same tiled to [16384, 4992],
+   and its first block [4096, 384]: every output must be equal, floats
+   bit for bit; median device times of both, the bound and the share;
 4. the main path, ``rx_stream`` at B=4096 and T=1920 over the same mix,
    on the kernels and on the plain versions: every output field and the
    final state must be equal, and every kernel must have been launched
@@ -245,6 +250,7 @@ K2_OPS_PER_CLK = 122     # 2 filters x (31 products + 30 sums) at a clk step
 K2_BLOCK = NBLK // 2     # the mid-session block K2 is timed on
 K3_SHAPES = ((4096, 24960), (16384, 1920))   # K3's timed calls: (channels, samples)
 K3_OPS_PER_SAMPLE = 20   # scale, |iq|, limiter, discriminator, the two sums
+K5_SHAPES = ((4096, 4992), (16384, 4992), (4096, 384))   # K5's timed calls: (channels, S2)
 PROFILE_BLOCKS = 4       # steady-state blocks of the main path under the profiler
 TX_LSB = 20              # port TX vs the JAX record, int16 LSB (3e-5 each): 6e-4
 SWEEP_SEED = 0           # the BER sweep's noise generator
@@ -529,6 +535,7 @@ def main() -> int:
           f"{smi('clocks.sm,power.draw,power.limit')}", flush=True)
 
     front_end_k3(dev, report, card)
+    compact_k5(blocks, dev, report, card)
 
     # ---- phase 4: the main path, kernels vs plain
     legs = {}
@@ -609,7 +616,10 @@ def main() -> int:
                                  _build.RECEIVER_SCAN),
                "front_end": ("m17_sdr_tpu_torch/csrc/front_end.cu",
                              "none: XLA's fusion of m17_sdr_tpu/dsp/discriminator.py",
-                             _build.FRONT_END)}
+                             _build.FRONT_END),
+               "compact": ("m17_sdr_tpu_torch/csrc/compact.cu",
+                           "none: XLA's sort and gathers in m17_sdr_tpu/frame/receiver.py",
+                           _build.COMPACT)}
     launches = {k.symbol: sum(p.get(k.symbol, 0) for p in paths.values())
                 for k in _build.KERNELS}
     kernels = []
@@ -668,6 +678,45 @@ def front_end_k3(dev, report: dict, card: str) -> None:
               f"{ms:.4f} ms, plain {plain:.3f} ms ({plain / ms:.1f}x); bound "
               f"{b_ms * 1e3:.2f} us ({by}, {nbytes / 1e6:.1f} MB), share {b_ms / ms:.3f}; "
               f"{card}; clocks.sm, power.draw, power.limit: "
+              f"{smi('clocks.sm,power.draw,power.limit')}", flush=True)
+
+
+def compact_k5(blocks: torch.Tensor, dev, report: dict, card: str) -> None:
+    """Phase 3c: K5 alone against compact_ref at K5_SHAPES, on K2's output
+    for the staggered mix."""
+    from m17_sdr_tpu_torch.dsp.discriminator import RxFrontEndState, rx_front_end
+    from m17_sdr_tpu_torch.frame.receiver import (
+        BlockEvents, ReceiverState, compact_cuda, compact_ref, max_frames_per_block,
+        receiver_scan_cuda)
+
+    session = blocks.permute(0, 2, 1, 3).reshape(B, 2, NBLK * T)
+    for b, s2 in K5_SHAPES:
+        iq = session[..., :s2 * 5].repeat(b // B, 1, 1)
+        soft, _, _ = rx_front_end(iq, RxFrontEndState.init(b, dev),
+                                  torch.zeros(b, dtype=torch.bool, device=dev))
+        slot, flags, st = receiver_scan_cuda(soft, ReceiverState.init(b, dev))
+        st = st._replace(sym_hist=torch.randn((b, 191), device=dev))
+        got, want = compact_cuda(slot, flags, st), compact_ref(slot, flags, st)
+        for name, a, r in (*zip(BlockEvents._fields, got[0], want[0]),
+                           ("sym_hist", got[1].sym_hist, want[1].sym_hist)):
+            if a.dtype == torch.float32:
+                a, r = a.view(torch.int32), r.view(torch.int32)
+            if not torch.equal(a, r):
+                fail(f"K5 [{b}, {s2}]: " + first_diff(name, a, r, False))
+        ms = cuda_ms(lambda: compact_cuda(slot, flags, st), 20)
+        plain = cuda_ms(lambda: compact_ref(slot, flags, st), 5)
+        f = max_frames_per_block(s2)
+        # slots and flags in, the history in and out, frames, four [B, F]
+        # masks and aos, los and n_slips out (portbench/metrics/k5_roofline.py)
+        nbytes = b * (s2 * 4 * 2 + 191 * 4 * 2 + f * 192 * 4 + f * (1 + 4 + 1 + 1) + 1 + 1 + 4)
+        b_ms, by = bound(nbytes, 0.0)
+        if (b, s2) == K5_SHAPES[0]:
+            report["compact"] = dict(ms=ms, plain_ms=plain, max_abs_err=0.0,
+                                     bound_ms=b_ms, bound_by=by)
+        print(f"phase 3c K5 [{b}, {s2}] ({int(got[0].frame_valid.sum())} frames): every "
+              f"output equal; kernel {ms:.4f} ms, plain {plain:.3f} ms ({plain / ms:.1f}x); "
+              f"bound {b_ms * 1e3:.2f} us ({by}, {nbytes / 1e6:.1f} MB), share "
+              f"{b_ms / ms:.3f}; {card}; clocks.sm, power.draw, power.limit: "
               f"{smi('clocks.sm,power.draw,power.limit')}", flush=True)
 
 

@@ -128,7 +128,13 @@ FRONT_END = CudaKernel("front_end.cu", "m17_front_end",
 #  stream) -- see csrc/equalize.cu
 EQUALIZE = CudaKernel("equalize.cu", "m17_equalize", [_P] * 9 + [_I, _I, _I, _P])
 
-KERNELS = (VITERBI, RECEIVER_SCAN, FRONT_END, EQUALIZE)
+# (slot [B, S2] f32, flags [B, S2] i32, sym_hist [B, 191] f32, frames [B, F,
+#  192] f32, valid, parse, slipped [B, F] u8, type [B, F] i32, aos, los [B]
+#  u8, n_slips [B] i32, sym_hist out [B, 191] f32, scratch (null or [B, 191
+#  + S2 + F] f32), b, s2, f, stream) -- see csrc/compact.cu
+COMPACT = CudaKernel("compact.cu", "m17_compact", [_P] * 13 + [_I, _I, _I, _P])
+
+KERNELS = (VITERBI, RECEIVER_SCAN, FRONT_END, EQUALIZE, COMPACT)
 
 
 def build_all() -> None:

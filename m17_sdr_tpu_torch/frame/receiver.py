@@ -17,8 +17,16 @@ over the 30-sample history ``state.window[:, 1:]`` in front of the block:
 Numerics follow the JAX package's XLA formulation: filter operands are
 rounded to bf16, each output is the f32 sum of the products in tap
 order, rounded to bf16.  The products of bf16 values are exact in f32,
-so both versions produce the same bits.  ``receive_block`` shares the
-post-processing (compaction, frame gather, history roll) between them.
+so both versions produce the same bits.
+
+The compaction after the scan (the valid slots compacted behind the
+carried symbol history, the first F frame completions gathered as
+frames, the history rolled) has two versions with one contract too,
+``(slot_val, flags, state) -> (BlockEvents, state)``: ``compact_ref``, plain
+PyTorch (a stable argsort, a sort and gathers), and ``compact_cuda``, the
+hand-written kernel ``csrc/compact.cu``, one launch.  ``receive_block``
+takes both kernels for CUDA tensors and both plain versions for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -331,21 +339,23 @@ def receive_block(samples: torch.Tensor, state: ReceiverState,
                   use_kernel: bool | None = None) -> tuple[BlockEvents, ReceiverState]:
     """Process one [B, S2] block of 2-samples/symbol soft samples.
 
-    Returns fixed-shape BlockEvents and the updated carry.  The scan runs
-    on the kernel for CUDA tensors and on the plain version for CPU
-    tensors, unless ``use_kernel`` says otherwise.
+    Returns fixed-shape BlockEvents and the updated carry.  The scan and
+    the compaction run on their kernels (K2, K5) for CUDA tensors and on
+    their plain versions for CPU tensors, unless ``use_kernel`` says
+    otherwise.
     """
-    scan = receiver_scan_cuda if _build.use_kernel_for(samples, use_kernel) else receiver_scan_ref
+    kernel = _build.use_kernel_for(samples, use_kernel)
     with span("scan"):
-        slot_vals, flags, state2 = scan(samples, state)
+        slot_vals, flags, state2 = (receiver_scan_cuda if kernel else receiver_scan_ref)(
+            samples, state)
     with span("compaction"):
-        return _compact(slot_vals, flags, state2)
+        return (compact_cuda if kernel else compact_ref)(slot_vals, flags, state2)
 
 
-def _compact(slot_vals: torch.Tensor, flags: torch.Tensor,
-             state2: ReceiverState) -> tuple[BlockEvents, ReceiverState]:
+def compact_ref(slot_vals: torch.Tensor, flags: torch.Tensor,
+                state2: ReceiverState) -> tuple[BlockEvents, ReceiverState]:
     """The scan's [B, S2] slot values and flags -> BlockEvents, and the
-    carry with the rolled symbol history."""
+    carry with the rolled symbol history; plain PyTorch, on any device."""
     b, s2 = flags.shape
     dev = flags.device
     slot_valids = (flags & F_VALID) != 0
@@ -393,5 +403,56 @@ def _compact(slot_vals: torch.Tensor, flags: torch.Tensor,
         frames=frames, frame_valid=frame_valid, frame_type=frame_type,
         frame_parse=frame_parse, frame_slipped=frame_slipped,
         aos=aos_any, los=los_any, locked=state2.flock, n_slips=n_slips,
+    )
+    return events, state2._replace(sym_hist=sym_hist)
+
+
+# a block's symbol stream stays in shared memory up to this size (the 48 KB
+# a block gets without asking, less the kernel's own); above, in a scratch
+_STREAM_SHARED_BYTES = 47 * 1024
+
+
+def compact_cuda(slot_vals: torch.Tensor, flags: torch.Tensor,
+                 state2: ReceiverState) -> tuple[BlockEvents, ReceiverState]:
+    """The CUDA kernel K5: ``compact_ref``'s contract and bits, in one
+    launch.  The outputs are new contiguous tensors; the inputs are only
+    read."""
+    name = "compact_cuda"
+    _build.check_cuda_input(name, flags, torch.int32, 2, contiguous=False)
+    b, s2 = flags.shape
+    if s2 == 0:
+        raise ValueError(f"{name}: a block of 0 steps holds no slot")
+    dev = flags.device
+    hist = state2.sym_hist
+    for what, x, dtype, shape in (("slot_vals", slot_vals, torch.float32, (b, s2)),
+                                  ("state.sym_hist", hist, torch.float32,
+                                   (b, FRAME_SYMBOLS - 1))):
+        _build.check_cuda_input(f"{name}: {what}", x, dtype, 2, contiguous=False)
+        if tuple(x.shape) != shape or x.device != dev:
+            raise ValueError(f"{name}: {what} must be {list(shape)} on {dev}, "
+                             f"got {tuple(x.shape)} on {x.device}")
+    slot_vals, flags, hist = slot_vals.contiguous(), flags.contiguous(), hist.contiguous()
+    f = min(max_frames_per_block(s2), s2)     # compact_ref's sort keeps at most S2
+    words = FRAME_SYMBOLS - 1 + s2 + f
+    scratch = (torch.empty((b, words), dtype=torch.float32, device=dev)
+               if 4 * words > _STREAM_SHARED_BYTES else None)
+    frames = torch.empty((b, f, FRAME_SYMBOLS), dtype=torch.float32, device=dev)
+    valid, parse, slipped = (torch.empty((b, f), dtype=torch.bool, device=dev)
+                             for _ in range(3))
+    ftype = torch.empty((b, f), dtype=torch.int32, device=dev)
+    aos, los = (torch.empty((b,), dtype=torch.bool, device=dev) for _ in range(2))
+    n_slips = torch.empty((b,), dtype=torch.int32, device=dev)
+    sym_hist = torch.empty_like(hist)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.COMPACT.launch(
+            slot_vals.data_ptr(), flags.data_ptr(), hist.data_ptr(), frames.data_ptr(),
+            valid.data_ptr(), parse.data_ptr(), slipped.data_ptr(), ftype.data_ptr(),
+            aos.data_ptr(), los.data_ptr(), n_slips.data_ptr(), sym_hist.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b, s2, f,
+            ctypes.c_void_p(stream))
+    events = BlockEvents(
+        frames=frames, frame_valid=valid, frame_type=ftype, frame_parse=parse,
+        frame_slipped=slipped, aos=aos, los=los, locked=state2.flock, n_slips=n_slips,
     )
     return events, state2._replace(sym_hist=sym_hist)

@@ -39,7 +39,8 @@ Derived:
                        against 13 blocks a call
   extraction_ms      = recv_kernel - kernel_only.  The port's kernel reads
                        the filter window from the carry itself, so this
-                       holds the compaction's sorts and gathers only; in
+                       holds the compaction only (K5 on the card, the
+                       plain version's sorts and gathers on the CPU); in
                        the JAX tool it also holds the ``concatenate`` that
                        builds the kernel's input.
   typed_decode_ms    = rx_kernel - recv_kernel - front_end

@@ -103,7 +103,8 @@ def test_document_keys_and_rates(small_run):
         SESSION_SAMPLES, 13, "per_call")
     assert cfg["device"] == {"name": "cpu", "name_power_limit": None}
     assert cfg["kernel_launches"] == {"m17_viterbi_decode": 0, "m17_receiver_scan": 0,
-                                      "m17_front_end": 0, "m17_equalize": 0}
+                                      "m17_front_end": 0, "m17_equalize": 0,
+                                      "m17_compact": 0}
     # rep_rates, calls_per_rep and rep_seconds are aligned, ascending in rate
     rates, calls, secs = cfg["rep_rates"], cfg["calls_per_rep"], cfg["rep_seconds"]
     assert len(rates) == len(calls) == len(secs) == 2 and rates == sorted(rates)

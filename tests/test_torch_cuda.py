@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
-from torch_parity import cuda, isi_smear  # noqa: F401  (fixture)
+from torch_parity import (compact_block, compact_cases, cuda, isi_smear,  # noqa: F401  (fixture)
+                          to_int16)
 
 from m17_sdr_tpu_torch import _build
 from m17_sdr_tpu_torch.convert import state_to_numpy
@@ -28,7 +29,7 @@ pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
 S2 = 384
 # the kernels of every receive path; K4 runs only with the equalizer on or auto
-RX_KERNELS = (_build.VITERBI, _build.RECEIVER_SCAN, _build.FRONT_END)
+RX_KERNELS = (_build.VITERBI, _build.RECEIVER_SCAN, _build.FRONT_END, _build.COMPACT)
 FIXTURE = _build.CSRC.parent / "data" / "rx_fixture.npz"
 
 
@@ -529,3 +530,129 @@ def test_rx_block_runs_the_equalizer_as_one_launch(cuda):   # noqa: F811
         before = _build.EQUALIZE.launches
         trx.rx_block(iq, RxSessionState.init(iq.shape[0], cuda), equalize=equalize)
         assert _build.EQUALIZE.launches == before + launches, equalize
+
+
+def _assert_compact_equal(cuda, slot, flags, hist, what):
+    """K5 against compact_ref on the same scan outputs: every output equal,
+    floats bit for bit, one launch, the inputs left as they were; returns
+    K5's outputs."""
+    b = flags.shape[0]
+    state = tr.ReceiverState.init(b, cuda)._replace(sym_hist=hist)
+    kept = [x.clone() for x in (slot, flags, hist)]
+    before = _build.COMPACT.launches
+    ev_k, st_k = tr.compact_cuda(slot, flags, state)
+    assert _build.COMPACT.launches == before + 1
+    ev_r, st_r = tr.compact_ref(slot, flags, state)
+    torch.cuda.synchronize()
+    got = (*ev_k, st_k.sym_hist)
+    want = (*ev_r, st_r.sym_hist)
+    for name, g, w in zip((*tr.BlockEvents._fields, "sym_hist"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and g.is_contiguous(), (name, what)
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), (name, what)
+    for a, k in zip((slot, flags, hist), kept):
+        assert torch.equal(a.view(torch.int32), k.view(torch.int32))
+    return ev_k, st_k
+
+
+@pytest.mark.parametrize("case", sorted(compact_cases()))
+def test_compact_kernel_edge_cases(cuda, case):   # noqa: F811
+    """The hand-made blocks that pin compact_ref (tests/test_torch_compact.py):
+    K5 equals it bit for bit."""
+    s2, channels, _ = compact_cases()[case]
+    _assert_compact_equal(cuda, *(x.to(cuda) for x in compact_block(s2, channels)), case)
+
+
+def _random_scan_outputs(cuda, b: int, s2: int, p_valid: float, p_done: float, seed: int):
+    """Flags of random bits with valid and completion bits drawn at the
+    given rates, normal slot values with some NaN payloads, a random
+    history."""
+    rng = np.random.default_rng(seed)
+    flags = rng.integers(-2**31, 2**31, size=(b, s2), dtype=np.int64).astype(np.int32)
+    flags &= ~np.int32(tr.F_VALID | tr.F_DONE)
+    flags |= (rng.random((b, s2)) < p_valid) * tr.F_VALID
+    flags |= (rng.random((b, s2)) < p_done) * tr.F_DONE
+    slot = rng.normal(size=(b, s2)).astype(np.float32)
+    slot.view(np.int32)[rng.random((b, s2)) < 0.01] = 0x7fc00123
+    hist = rng.normal(size=(b, 191)).astype(np.float32)
+    return tuple(torch.as_tensor(x).to(cuda) for x in (slot, flags, hist))
+
+
+# S2 385 takes the kernel's 4-byte loads, 16000 its global scratch
+@pytest.mark.parametrize("s2", [384, 385, 4992, 16000])
+@pytest.mark.parametrize("b", [1, 3, 64, 4096])
+def test_compact_kernel_random_flags(cuda, b, s2):   # noqa: F811
+    """Random flags at three rates of valid steps and completions (half of
+    all steps; a frame's worth; none valid), chained over two calls so the
+    second reads the first's history: K5 equals compact_ref."""
+    for i, (pv, pd) in enumerate(((0.5, 0.5), (0.9, 0.0026), (0.0, 0.01))):
+        slot, flags, hist = _random_scan_outputs(cuda, b, s2, pv, pd, seed=b * s2 + i)
+        _, st = _assert_compact_equal(cuda, slot, flags, hist, (pv, pd))
+        _assert_compact_equal(cuda, slot.flip(1).contiguous(), flags, st.sym_hist, (pv, pd, 2))
+
+
+def test_compact_kernel_reads_unaligned_rows(cuda):   # noqa: F811
+    """Contiguous rows one element into their storage (no 16-byte loads)
+    and a strided history: K5 equals compact_ref."""
+    slot, flags, hist = _random_scan_outputs(cuda, 5, 4992, 0.5, 0.003, seed=11)
+    buf_s = torch.empty(slot.numel() + 1, device=cuda)
+    buf_f = torch.empty(flags.numel() + 1, dtype=torch.int32, device=cuda)
+    buf_s[1:] = slot.reshape(-1)
+    buf_f[1:] = flags.reshape(-1)
+    wide = torch.zeros(5, 400, device=cuda)
+    wide[:, :382:2] = hist
+    _assert_compact_equal(cuda, buf_s[1:].view(5, 4992), buf_f[1:].view(5, 4992),
+                          wide[:, :382:2], "unaligned")
+
+
+@pytest.mark.parametrize("mix", ["voice", "noise"])
+def test_compact_kernel_on_the_scan_output(cuda, mix):   # noqa: F811
+    """The fixture sessions (voice) and int16 noise, 64 channels staggered,
+    through the front end and K2 as whole 13-block sessions, two calls
+    chained: K5 equals compact_ref on K2's real slot values and flags."""
+    iq = np.tile(_fixture_iq(), (8, 1, 1))
+    if mix == "noise":
+        iq = to_int16(np.random.default_rng(4).normal(0, 0.7071, iq.shape))
+    iq = torch.as_tensor(np.stack([np.roll(x, 1920 * (c % 13), axis=-1)
+                                   for c, x in enumerate(iq)])).to(cuda)
+    fe = RxFrontEndState.init(iq.shape[0], cuda)
+    st = tr.ReceiverState.init(iq.shape[0], cuda)
+    frames = 0
+    for _ in range(2):
+        soft, _, fe = rx_front_end(iq, fe, st.flock)
+        slot, flags, st2 = tr.receiver_scan_cuda(soft, st)
+        ev, st = _assert_compact_equal(cuda, slot, flags, st2.sym_hist, mix)
+        st = st2._replace(sym_hist=st.sym_hist)
+        frames += int(ev.frame_valid.sum())
+    assert (frames > 0) == (mix == "voice")
+
+
+def test_rx_block_runs_the_compaction_as_one_launch(cuda):   # noqa: F811
+    """A whole-session rx_block call launches K5 once and no sort: the
+    profiler sees no aten::sort or aten::argsort."""
+    iq = torch.as_tensor(_fixture_iq()).to(cuda)
+    st = RxSessionState.init(iq.shape[0], cuda)
+    trx.rx_block(iq, st)
+    torch.cuda.synchronize()
+    before = _build.COMPACT.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        trx.rx_block(iq, st)
+        torch.cuda.synchronize()
+    assert _build.COMPACT.launches == before + 1
+    names = {e.key for e in prof.key_averages()}
+    assert "aten::sort" not in names and "aten::argsort" not in names, sorted(names)
+
+
+def test_compact_wrapper_checks_inputs(cuda):   # noqa: F811
+    slot, flags, hist = (x.to(cuda) for x in compact_block(16, [{}, {}]))
+    st = tr.ReceiverState.init(2, cuda)._replace(sym_hist=hist)
+    for bad in ((slot.double(), flags, st), (slot, flags.long(), st),
+                (slot, flags.float(), st), (slot.cpu(), flags, st), (slot, flags.cpu(), st),
+                (slot[:, :15], flags, st), (slot[:1], flags, st), (slot[0], flags, st),
+                (slot, flags, st._replace(sym_hist=hist[:, :190])),
+                (slot, flags, st._replace(sym_hist=hist.cpu())),
+                (slot, flags, st._replace(sym_hist=hist.double())),
+                (slot[:, :0], flags[:, :0], st)):
+        with pytest.raises(ValueError):
+            tr.compact_cuda(*bad)

@@ -62,7 +62,7 @@ def test_document_has_the_jax_keys_and_agrees(run):
     assert doc["sharded_equals_unsharded"] is True and doc["totals_equal_sums"] is True
     assert doc["sharded_elapsed_s"] > 0 and doc["unsharded_elapsed_s"] > 0
     zero = {"m17_viterbi_decode": 0, "m17_receiver_scan": 0, "m17_front_end": 0,
-            "m17_equalize": 0}
+            "m17_equalize": 0, "m17_compact": 0}
     assert doc["kernel_launches"] == {"sharded": zero, "unsharded": zero}
 
 

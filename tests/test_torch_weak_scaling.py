@@ -107,7 +107,8 @@ def test_point_recomputes_from_times(points, n):
     assert point["samples_processed"] == n * CH * NBLK * 1920
     assert point["sharding_efficiency"] == round(point["t_nocomm_s"] / point["t_sharded_s"], 4)
     assert point["kernel_launches"] == {"m17_viterbi_decode": 0, "m17_receiver_scan": 0,
-                                        "m17_front_end": 0, "m17_equalize": 0}
+                                        "m17_front_end": 0, "m17_equalize": 0,
+                                        "m17_compact": 0}
 
 
 def test_document_and_world_sizes(points):

@@ -203,3 +203,95 @@ class FakeReflector:
 
     def close(self) -> None:
         self.sock.close()
+
+
+# ---- hand-made scan outputs for the frame compaction (compact_ref and K5)
+
+HIST = [-1.0 - i for i in range(191)]       # the carried symbol history
+
+
+def slot_value(t: int) -> float:
+    """The slot value of step t in the hand-made blocks."""
+    return 100.0 + t
+
+
+def _values(steps) -> list[float]:
+    return [slot_value(t) for t in steps]
+
+
+def compact_block(s2: int, channels: list[dict]):
+    """Scan outputs (slot_vals [B, s2] f32, flags [B, s2] i32, sym_hist
+    [B, 191] f32) from one dict of step sets a channel: ``valid``,
+    ``done``, ``parse``, ``slipframe``, ``aos``, ``los``, ``slip``, and
+    ``types`` ({step: sync type}; other steps carry type t % 6).  Step t's
+    slot value is ``slot_value(t)`` on every channel."""
+    from m17_sdr_tpu_torch.frame import receiver as tr
+
+    bits = {"valid": tr.F_VALID, "done": tr.F_DONE, "parse": tr.F_PARSE, "aos": tr.F_AOS,
+            "los": tr.F_LOS, "slip": tr.F_SLIP, "slipframe": tr.F_SLIPFRAME}
+    flags = np.zeros((len(channels), s2), np.int32)
+    for c, ch in enumerate(channels):
+        types = ch.get("types", {})
+        for t in range(s2):
+            flags[c, t] = np.int32(types.get(t, t % 6)) << tr.F_TYPE_SHIFT
+        for key, bit in bits.items():
+            for t in ch.get(key, ()):
+                flags[c, t] |= bit
+    slot = np.tile(np.asarray(_values(range(s2)), np.float32), (len(channels), 1))
+    hist = np.tile(np.asarray(HIST, np.float32), (len(channels), 1))
+    return torch.as_tensor(slot), torch.as_tensor(flags), torch.as_tensor(hist)
+
+
+def compact_cases() -> dict:
+    """The compaction's edge cases: name -> (s2, channels, expected), the
+    expected outputs of one channel (of each, for ``lock_events``) as
+    lists: ``frames`` (each slot's 192 symbols), ``valid``, ``type``,
+    ``parse``, ``slipped``, ``sym_hist``, and ``aos``, ``los``,
+    ``n_slips`` a channel.  At s2 = 16 a block has F = 2 frame slots; a
+    slot no completion filled reads step s2 - 1 at the block's valid
+    count."""
+    v16 = _values(range(16))
+    quiet = dict(aos=[False], los=[False], n_slips=[0])
+    return {
+        # no valid slot: a frame reads the history and then the stable
+        # argsort's first entry, the first invalid step (step 0)
+        "no_valid_slot": (16, [dict(done={5}, parse={5})], dict(
+            frames=[HIST + _values([0])] * 2, valid=[True, False], type=[5, 3],
+            parse=[True, False], slipped=[False, False], sym_hist=HIST, **quiet)),
+        # a completion before any valid step starts at stream offset 0
+        "completion_at_vcount_0": (16, [dict(valid={4, 6, 8}, done={2}, parse={2},
+                                             slipframe={2})], dict(
+            frames=[HIST + _values([4]), HIST[2:] + _values([4, 6, 8])], valid=[True, False],
+            type=[2, 3], parse=[True, False], slipped=[True, False],
+            sym_hist=HIST[3:] + _values([4, 6, 8]), **quiet)),
+        # four completions, two slots: the first two in step order
+        "more_completions_than_slots": (16, [dict(valid=set(range(16)), done={12, 3, 9, 5},
+                                                  parse={5, 9})], dict(
+            frames=[HIST[3:] + v16[:4], HIST[5:] + v16[:6]], valid=[True, True], type=[3, 5],
+            parse=[False, True], slipped=[False, False], sym_hist=HIST[16:] + v16, **quiet)),
+        # no completion: both slots read step 15 (its parse and slip bits
+        # masked, its type kept, shifted arithmetically)
+        "no_completion": (16, [dict(valid={1, 2, 3}, parse={15}, slipframe={15},
+                                    types={15: -3})], dict(
+            frames=[HIST[2:] + _values([1, 2, 3])] * 2, valid=[False, False], type=[-3, -3],
+            parse=[False, False], slipped=[False, False],
+            sym_hist=HIST[3:] + _values([1, 2, 3]), **quiet)),
+        # 10 valid symbols: the history keeps its last 181
+        "history_partly_kept": (16, [dict(valid=set(range(10)), done={9})], dict(
+            frames=[HIST[9:] + v16[:10], HIST[9:] + v16[:10]], valid=[True, False],
+            type=[3, 3], parse=[False, False], slipped=[False, False],
+            sym_hist=HIST[10:] + v16[:10], **quiet)),
+        # 400 valid symbols (F = 3): the history is the last 191 of them
+        "history_rolled_whole": (400, [dict(valid=set(range(400)), done={200, 399})], dict(
+            frames=[_values(range(9, 201)), _values(range(208, 400)),
+                    _values(range(208, 400))], valid=[True, True, False], type=[2, 3, 3],
+            parse=[False, False, False], slipped=[False, False, False],
+            sym_hist=_values(range(209, 400)), **quiet)),
+        # the block's lock events and slip counts, three channels
+        "lock_events": (16, [dict(valid=set(range(16)), aos={2}),
+                             dict(valid=set(range(16)), los={7}, slip={1, 4, 9}),
+                             dict(valid=set(range(16)), aos={3}, los={11}, slip={15})], dict(
+            frames=[HIST[15:] + v16] * 2, valid=[False, False], type=[3, 3],
+            parse=[False, False], slipped=[False, False], sym_hist=HIST[16:] + v16,
+            aos=[True, False, True], los=[False, True, True], n_slips=[0, 3, 1])),
+    }
